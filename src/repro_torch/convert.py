@@ -1,0 +1,86 @@
+"""Carry the JAX package's weights and env values across to the port.
+
+Every function takes the JAX package's values as numpy arrays (convert a JAX
+pytree with ``np.asarray`` on each leaf first) and never a JAX object, so this
+module imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core.state import EnvParams, EnvState, RewardWeights
+from repro_torch.rl.networks import ActorCritic
+from repro_torch.utils import resolve_device
+
+
+def actor_critic_from_numpy(
+    params: Mapping[str, Any],
+    n_heads: int,
+    *,
+    device: torch.device | str | None = None,
+) -> ActorCritic:
+    """``{"actor": {"h0": {"w", "b"}, ..., "out": ...}, "critic": ...}`` -> ActorCritic.
+
+    The JAX layers compute ``x @ w + b``, so each ``Linear.weight`` is ``w.T``.
+    """
+    actor = params["actor"]
+    n_hidden = sum(1 for k in actor if k.startswith("h"))
+    hidden = tuple(int(np.shape(actor[f"h{i}"]["w"])[1]) for i in range(n_hidden))
+    obs_dim = int(np.shape(actor["h0"]["w"])[0])
+    n_out = int(np.shape(actor["out"]["w"])[1])
+    if n_out % n_heads:
+        raise ValueError(f"policy head width {n_out} is not a multiple of {n_heads} heads")
+    net = ActorCritic(obs_dim, n_heads, n_out // n_heads, hidden)
+    names = [f"h{i}" for i in range(n_hidden)] + ["out"]
+    with torch.no_grad():
+        for side, seq in (("actor", net.actor), ("critic", net.critic)):
+            linears = [m for m in seq if isinstance(m, torch.nn.Linear)]
+            for name, layer in zip(names, linears):
+                layer.weight.copy_(torch.from_numpy(np.array(params[side][name]["w"]).T))
+                layer.bias.copy_(torch.from_numpy(np.array(params[side][name]["b"])))
+    return net.to(resolve_device(device))
+
+
+def env_state_from_numpy(
+    fields: Mapping[str, Any], *, device: torch.device | str | None = None
+) -> EnvState:
+    """EnvState from its fields as numpy arrays with the leading env axis.
+
+    Dtypes are kept: int32 ``t_remain``/``t``/``day``, float32 elsewhere.
+    """
+    dev = resolve_device(device)
+    return EnvState(
+        **{
+            f.name: torch.as_tensor(np.array(fields[f.name]), device=dev)
+            for f in dataclasses.fields(EnvState)
+        }
+    )
+
+
+def env_params_from_numpy(
+    fields: Mapping[str, Any], *, device: torch.device | str | None = None
+) -> EnvParams:
+    """EnvParams from its fields as float32 numpy arrays; ``weights`` is a
+    mapping of the RewardWeights fields.
+
+    The JAX ``pole`` pack is not carried across (it is lane-padded for the
+    TPU): build the port's with ``kernels.chargax_step.ops.build_pole_params``.
+    """
+    dev = resolve_device(device)
+
+    def arr(x) -> torch.Tensor:
+        return torch.as_tensor(np.array(x, dtype=np.float32), device=dev)
+
+    weights = RewardWeights(**{k: arr(v) for k, v in fields["weights"].items()})
+    return EnvParams(
+        **{
+            f.name: arr(fields[f.name])
+            for f in dataclasses.fields(EnvParams)
+            if f.name not in ("weights", "pole")
+        },
+        weights=weights,
+    )

@@ -1,0 +1,99 @@
+"""The sampler seam: every random draw of a Chargax step or reset.
+
+torch cannot reproduce ``jax.random``'s threefry streams, so the port keeps
+its random draws apart from the physics that consumes them.  A step or reset
+takes either a ``torch.Generator`` (the draws below are made from it) or the
+draws themselves (:class:`ArrivalDraws`, :class:`ResetDraws`).  Tests inject
+the JAX package's own draws for a key and hold the physics to the reference;
+the generator sampler is held to the distributions by its moments.
+
+The per-port draws match ``repro/core/transition.py:567-578``: one car model,
+stay noise, arrival SoC, target noise and user-type coin per port, of which
+only the ports a car is assigned to are used.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.state import EnvParams, EnvState
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class ArrivalDraws:
+    """One step's arrival draws for a batch of B envs with N ports."""
+
+    m: Tensor  # (B,) int32 Poisson count of cars arriving this step
+    model: Tensor  # (B, N) int64 car-model index per port
+    z_stay: Tensor  # (B, N) standard normal: lognormal stay duration
+    soc0: Tensor  # (B, N) Beta(soc0_a, soc0_b) arrival state of charge
+    z_tgt: Tensor  # (B, N) standard normal: target state of charge
+    bern: Tensor  # (B, N) bool, True = time-sensitive user
+
+
+@dataclasses.dataclass(frozen=True)
+class ResetDraws:
+    """The reset's draws: the episode's day of the price year."""
+
+    day: Tensor  # (B,) int32
+
+
+def arrival_rate(params: EnvParams, state: EnvState) -> Tensor:
+    """Expected arrivals this step, (B,): the time-of-day rate × day scale."""
+    spd = params.arrival_rate.shape[0]
+    n_days = params.arrival_day_scale.shape[0]
+    return (
+        params.arrival_rate[torch.remainder(state.t, spd).long()]
+        * params.arrival_day_scale[torch.remainder(state.day, n_days).long()]
+    )
+
+
+def car_probs(params: EnvParams, day: Tensor) -> Tensor:
+    """(B, n_models) car-model distribution of each env's day."""
+    probs = params.car_probs
+    if probs.dim() == 1:
+        return probs.expand(day.shape[0], -1)
+    return probs[torch.remainder(day, probs.shape[0]).long()]
+
+
+def draw_arrivals(
+    params: EnvParams, state: EnvState, generator: torch.Generator
+) -> ArrivalDraws:
+    """Draw one step's arrivals from ``generator`` (on the state's device)."""
+    b, n = state.occupied.shape
+    dev = state.occupied.device
+    m = torch.poisson(arrival_rate(params, state), generator=generator)
+    model = torch.multinomial(
+        car_probs(params, state.day), n, replacement=True, generator=generator
+    )
+    z_stay = torch.randn((b, n), generator=generator, device=dev)
+    # Beta(a, b) as X / (X + Y) with X ~ Gamma(a), Y ~ Gamma(b)
+    x = torch._standard_gamma(params.soc0_a.expand(b, n).contiguous(), generator=generator)
+    y = torch._standard_gamma(params.soc0_b.expand(b, n).contiguous(), generator=generator)
+    z_tgt = torch.randn((b, n), generator=generator, device=dev)
+    bern = torch.bernoulli(
+        params.p_time_sensitive.expand(b, n).contiguous(), generator=generator
+    )
+    return ArrivalDraws(
+        m=m.to(torch.int32),
+        model=model,
+        z_stay=z_stay,
+        soc0=x / (x + y),
+        z_tgt=z_tgt,
+        bern=bern > 0.5,
+    )
+
+
+def draw_reset(
+    params: EnvParams, num_envs: int, generator: torch.Generator
+) -> ResetDraws:
+    """Exploring starts over the price dataset (paper App. B.1): a day per env."""
+    n_days = params.price_buy_table.shape[0]
+    day = torch.randint(
+        0, n_days, (num_envs,), generator=generator,
+        device=params.price_buy_table.device, dtype=torch.int32,
+    )
+    return ResetDraws(day=day)

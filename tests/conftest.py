@@ -3,3 +3,6 @@ import pytest
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running training/compile tests")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skips without one); run on the card"
+    )
