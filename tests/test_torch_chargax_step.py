@@ -117,6 +117,37 @@ def test_wrapper_refuses_other_devices():
         ops.chargax_step(meta, ops.build_pole_params(params), 5 / 60)
 
 
+def _slabs_and_pole(b: int, p: int, nn: int, dtype=torch.float32):
+    slabs = PoleSlabs(*(torch.ones((b, p), dtype=dtype) for _ in PoleSlabs._fields))
+    pp = ops.PoleParams(
+        voltage=torch.ones(p), imax=torch.ones(p), eff=torch.ones(p),
+        member=torch.ones((nn, p)), node_budget=torch.ones(nn), power_w=torch.ones(p),
+        member_bits=torch.zeros(nn, dtype=torch.int32),
+    )
+    return slabs, pp, torch.ones(b)
+
+
+@pytest.mark.parametrize("p, nn", [(33, 3), (17, 33)])
+def test_kernel_wrapper_refuses_more_than_32_poles_or_nodes(p, nn):
+    slabs, pp, cap = _slabs_and_pole(4, p, nn)
+    with pytest.raises(ValueError, match="at most 32 poles and 32 nodes"):
+        ops._launch(slabs, pp, 5 / 60, cap)
+
+
+def test_kernel_wrapper_checks_dtype_and_shape_before_launch():
+    slabs, pp, cap = _slabs_and_pole(4, 17, 3, dtype=torch.float64)
+    with pytest.raises(ValueError, match="dtype"):
+        ops._launch(slabs, pp, 5 / 60, cap)
+    slabs, pp, _ = _slabs_and_pole(4, 17, 3)
+    with pytest.raises(ValueError, match="cap_kw has shape"):
+        ops._launch(slabs, pp, 5 / 60, torch.ones(5))
+    before = ops.chargax_step.launches
+    slabs = PoleSlabs(*(x.t().contiguous().t() for x in slabs))  # column-major
+    with pytest.raises(ValueError, match="not contiguous"):
+        ops._launch(slabs, pp, 5 / 60, torch.ones(4))
+    assert ops.chargax_step.launches == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("architecture", LAYOUTS)
 def test_cuda_kernel_matches_plain_version(architecture):
