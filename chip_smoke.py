@@ -21,7 +21,10 @@ Phases, in order (any failure raises and the script exits non-zero):
    episode of the paper's max-charge baseline;
 5. serve: a (131072, obs_dim) observation batch through ``serve``, 10 calls;
 6. kernel time: the kernel and its plain version at B=16384 (paper_16),
-   beside the least time the card could take for the same work.
+   beside the least time the card could take for the same work;
+7. profile: one more greedy 16384-env episode under ``torch.profiler``: the
+   device's busy ms per step, its idle share of the unprofiled episode of
+   phase 4, device kernels per step and the kernels that take most time.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and before that a ``{"kernels": [...]}``
@@ -201,6 +204,38 @@ def rollout_card_vs_cpu(env: ChargaxEnv, b: int = 64, steps: int = 24) -> None:
     print(f"rollout card vs cpu: B={b} {steps} steps, max abs err {worst:.3g}")
 
 
+def _device_time_us(event) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(event, name):
+            return float(getattr(event, name))
+    return 0.0
+
+
+def profile_episode(env: ChargaxEnv, policy, net, gen, episode_s: float) -> dict:
+    """Phase 7: where the device time of one greedy episode goes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = env.config.episode_steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        evaluate(env, policy, net, gen, num_episodes=NUM_ENVS, device=env.device)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(_device_time_us(e) for e in kernels) / 1000.0
+    top = sorted(kernels, key=_device_time_us, reverse=True)[:12]
+    summary = {
+        "num_envs": NUM_ENVS,
+        "steps": steps,
+        "device_busy_ms_per_step": busy_ms / steps if busy_ms else None,
+        "unprofiled_ms_per_step": episode_s * 1000.0 / steps,
+        "device_idle_share": 1.0 - busy_ms / (episode_s * 1000.0) if busy_ms else None,
+        "device_kernels_per_step": sum(e.count for e in kernels) / steps,
+        "top_kernels_us_per_step": {e.key[:80]: _device_time_us(e) / steps for e in top},
+    }
+    if not busy_ms:
+        print("profile: device time not measured (the profiler recorded no CUDA kernel time)")
+    return summary
+
+
 def check_kpis(result: dict, label: str) -> None:
     check(all(math.isfinite(v) for v in result.values()), f"{label}: non-finite KPIs {result}")
     check(result["energy_delivered_kwh"] > 0, f"{label}: no energy delivered")
@@ -315,6 +350,10 @@ def main() -> int:
         f"{n_ops} ops take {ops_ms:.5f} ms at {PEAK_FP32_OPS_PER_S / 1e12} TFLOP/s fp32), "
         f"achieved {bound_ms / kernel_ms:.3f} of bound"
     )
+
+    # --- 7. profile ---------------------------------------------------------------
+    print(json.dumps({"profile": profile_episode(env, policy, net, gen, episode_s)}))
+
     metrics = {
         "env_steps_per_s": env_steps_per_s,
         "episode_s": episode_s,

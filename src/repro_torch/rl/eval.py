@@ -63,13 +63,16 @@ def evaluate(
 
 
 def make_ppo_policy(env: ChargaxEnv, greedy: bool = True):
-    """Wrap an :class:`ActorCritic` into a policy: (params, generator, obs) -> action."""
+    """Wrap an :class:`ActorCritic` into a policy: (params, generator, obs) -> action.
+
+    Only the actor runs: acting needs no value estimate.
+    """
 
     def policy(params: networks.ActorCritic, generator, obs):
-        out = params(obs)
+        logits = params.logits(obs)
         if greedy:
-            return out.logits.argmax(-1)
-        return networks.sample_action(out.logits, generator)
+            return logits.argmax(-1)
+        return networks.sample_action(logits, generator)
 
     return policy
 

@@ -66,10 +66,12 @@ class ActorCritic(nn.Module):
         self.actor = _mlp(obs_dim, tuple(hidden), n_heads * n_actions, 0.01, gen)
         self.critic = _mlp(obs_dim, tuple(hidden), 1, 1.0, gen)
 
+    def logits(self, obs: Tensor) -> Tensor:
+        """The actor alone: (..., obs_dim) -> (..., n_heads, n_actions)."""
+        return self.actor(obs).reshape(*obs.shape[:-1], self.n_heads, self.n_actions)
+
     def forward(self, obs: Tensor) -> PolicyOutput:
-        logits = self.actor(obs).reshape(*obs.shape[:-1], self.n_heads, self.n_actions)
-        value = self.critic(obs)[..., 0]
-        return PolicyOutput(logits, value)
+        return PolicyOutput(self.logits(obs), self.critic(obs)[..., 0])
 
 
 # ---------------------------------------------------------------------------

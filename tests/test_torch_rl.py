@@ -61,6 +61,23 @@ def test_actor_critic_forward_matches_jax():
     assert got.logits.shape == (B, jenv.num_action_heads, jenv.num_actions_per_head)
     np.testing.assert_allclose(got.logits.numpy(), np.asarray(want.logits), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got.value.numpy(), np.asarray(want.value), rtol=1e-5, atol=1e-5)
+    with torch.no_grad():
+        assert torch.equal(net.logits(torch.from_numpy(obs)), got.logits)
+
+
+@pytest.mark.parametrize("greedy", [True, False])
+def test_ppo_policy_runs_only_the_actor(greedy):
+    _, tenv = env_pair()
+    net = networks.ActorCritic(tenv.obs_dim, tenv.num_action_heads, tenv.num_actions_per_head)
+    calls = []
+    net.critic.register_forward_hook(lambda *_: calls.append(1))
+    obs = torch.from_numpy(_obs(8))
+    with torch.no_grad():
+        a = make_ppo_policy(tenv, greedy=greedy)(net, torch.Generator().manual_seed(0), obs)
+        assert a.shape == (8, tenv.num_action_heads)
+        assert not calls
+        net(obs)
+    assert calls == [1]
 
 
 def test_log_prob_and_entropy_match_jax():
