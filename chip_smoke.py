@@ -221,7 +221,10 @@ def profile_episode(env: ChargaxEnv, policy, net, gen, episode_s: float) -> dict
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(_device_time_us(e) for e in kernels) / 1000.0
-    top = sorted(kernels, key=_device_time_us, reverse=True)[:12]
+    by_name: dict[str, float] = {}  # kernels whose names share 80 characters are summed
+    for e in kernels:
+        by_name[e.key[:80]] = by_name.get(e.key[:80], 0.0) + _device_time_us(e) / steps
+    top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:12]
     summary = {
         "num_envs": NUM_ENVS,
         "steps": steps,
@@ -229,7 +232,7 @@ def profile_episode(env: ChargaxEnv, policy, net, gen, episode_s: float) -> dict
         "unprofiled_ms_per_step": episode_s * 1000.0 / steps,
         "device_idle_share": 1.0 - busy_ms / (episode_s * 1000.0) if busy_ms else None,
         "device_kernels_per_step": sum(e.count for e in kernels) / steps,
-        "top_kernels_us_per_step": {e.key[:80]: _device_time_us(e) / steps for e in top},
+        "top_kernels_us_per_step": dict(top),
     }
     if not busy_ms:
         print("profile: device time not measured (the profiler recorded no CUDA kernel time)")
