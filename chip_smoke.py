@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's main path on one CUDA card and hold its kernel to
-its plain version.
+"""Run the PyTorch port's main paths on one CUDA card and hold each of its
+kernels to its plain version.
 
     python3 chip_smoke.py
 
 Phases, in order (any failure raises and the script exits non-zero):
 
 1. device: needs a CUDA card; prints its name and power limit; TF32 off;
-2. build: compiles the chargax_step CUDA kernel from the checkout (nvcc,
-   sm_90a) into build/, and prints the build seconds and ptxas' report;
+2. build: compiles the three CUDA kernels (chargax_step, flash_attention,
+   mamba2_ssd) from the checkout (nvcc, sm_90a, one nvcc each, all started
+   together) into build/, and prints each build's seconds and ptxas' report;
 3. kernel vs plain: the kernel against ``fused_step_ref`` on random slabs,
    B in {1, 300, 16384}, layouts paper_16 / deep_4x4 / kiosk_ac_4, with an
    unlimited feeder cap and one at half of each env's requested power, at
@@ -24,20 +25,49 @@ Phases, in order (any failure raises and the script exits non-zero):
    beside the least time the card could take for the same work;
 7. profile: one more greedy 16384-env episode under ``torch.profiler``: the
    device's busy ms per step, its idle share of the unprofiled episode of
-   phase 4, device kernels per step and the kernels that take most time.
+   phase 4, device kernels per step and the kernels that take most time;
+8. flash kernel vs plain: ``flash_attention`` against ``mha_blocked`` on the
+   same tensors, eight (b, hq, hkv, lq, lk, d) shapes up to the serving one,
+   causal and not, windows 64 and 300, soft-cap 50, fp32 within 2e-5 (the
+   JAX package's kernel tolerance) and bf16 within one bf16 rounding of the
+   output (rtol 2**-7, atol 1e-3);
+9. SSD kernel vs plain: ``ssd`` against ``ssd_chunked`` (y and final state),
+   five (b, l, h, p, n) shapes up to the serving one, fp32 within 2e-4 (the
+   JAX package's), bf16 y within one bf16 rounding (rtol 2**-7, atol 1e-3),
+   the fp32 final state within 2e-4 in both dtypes;
+10. LM on the card against the CPU: zamba2 at full width with 6 layers
+   (one group, one shared-attention site) in fp32, the same weights on both
+   devices, last-position prefill logits of 256 tokens; then the smoke
+   config in fp32 on the card, teacher-forced logits against 8 cached
+   decode steps within 2e-3 (the JAX package's decode==train check);
+11. serving: zamba2-1.2b at full width and depth (38 layers, bf16) from
+   ``init`` with seed 0 under ``inference_mode``: ``make_prefill_step`` of
+   4 x 4096 tokens with every kernel count reset just before and read just
+   after (exactly 7 flash and 38 SSD launches), median of 5 timed calls,
+   prefill tokens/s and peak memory; ``generate`` of 32 new tokens after a
+   16-token prompt at batch 4, then the same decode through
+   ``make_serve_step`` timed step by step, its tokens equal to generate's;
+12. kernel time of flash attention and SSD at the serving shapes beside
+   their plain versions, their bounds and (flash) SDPA as a yardstick;
+13. profile: one more prefill under ``torch.profiler``: device busy ms, idle
+   share of the unprofiled prefill, kernels per prefill, top kernels.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and before that a ``{"kernels": [...]}``
-line.  Needs the repository's ``src/`` beside this file.
+line with all three kernels.  Needs the repository's ``src/`` beside this
+file.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import json
 import math
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -45,15 +75,26 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+import torch.nn.functional as F  # noqa: E402
+
+from repro_torch.configs.registry import build_model, get_config  # noqa: E402
 from repro_torch.core import ChargaxEnv, EnvConfig, sampling  # noqa: E402
+from repro_torch.distributed.train_step import make_prefill_step, make_serve_step  # noqa: E402
 from repro_torch.kernels.chargax_step import ops  # noqa: E402
 from repro_torch.kernels.chargax_step.ref import BIG, PoleSlabs, fused_step_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import mha_blocked  # noqa: E402
+from repro_torch.kernels.mamba2_ssd import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.mamba2_ssd.ref import ssd_chunked  # noqa: E402
+from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.rl import evaluate, make_ppo_policy, max_charge_policy, serve  # noqa: E402
 from repro_torch.rl.networks import ActorCritic  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, float32 (non-tensor-core) rate
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, float32 (non-tensor-core)
+# rate, dense bf16 tensor-core rate
 PEAK_HBM_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
+PEAK_BF16_OPS_PER_S = 989e12
 # float operations of one chargax_step per pole (counted from
 # csrc/chargax_step.cu: three charge-rate curves, bounds, clip, curtail and
 # the integrator) and per pole and node (the Eq. 5 load and scale)
@@ -62,6 +103,33 @@ OPS_PER_POLE_NODE = 6
 TOL = dict(rtol=1e-4, atol=2e-4)  # the JAX package's own kernel tolerance
 NUM_ENVS = 16384
 SERVE_BATCH = 131072
+ARCH = "zamba2-1.2b"
+# (b, hq, hkv, lq, lk, d): MHA, GQA, MQA rectangular, unaligned, one decode
+# row over 4097 keys, the smoke config's D = 16, gemma2's D = 256, and
+# zamba2-1.2b's prefill at 4 x 4096 (the shape the main path launches)
+FA_SHAPES = [
+    (1, 2, 2, 128, 128, 64), (2, 4, 2, 256, 256, 128), (1, 8, 1, 128, 384, 128),
+    (1, 2, 2, 130, 200, 64), (1, 4, 4, 1, 4097, 64), (1, 2, 1, 64, 64, 16),
+    (1, 2, 1, 256, 256, 256), (4, 32, 32, 4096, 4096, 64),
+]
+FA_VARIANTS = {
+    "causal": dict(causal=True),
+    "full": dict(causal=False),
+    "window64": dict(causal=True, window=64),
+    "window300": dict(causal=True, window=300),
+    "softcap50": dict(causal=True, softcap=50.0),
+}
+# fp32: the JAX package's kernel tolerances (tests/kernels/test_flash_attention.py,
+# tests/kernels/test_mamba2_ssd.py).  bf16: kernel and plain version both sum
+# in fp32 and round the output to bf16 once, so they may differ by one bf16
+# step, at most 2**-7 of the value, plus fp32 noise
+FA_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=2**-7, atol=1e-3)}
+SSD_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4), torch.bfloat16: dict(rtol=2**-7, atol=1e-3)}
+# (b, l, h, p, n); the last is zamba2-1.2b's serving shape
+SSD_SHAPES = [(1, 256, 2, 64, 64), (2, 128, 3, 128, 128), (2, 200, 4, 32, 16), (2, 8, 4, 32, 16),
+              (4, 4096, 64, 64, 64)]
+PREFILL_B, PREFILL_L = 4, 4096
+DECODE_B, PROMPT_LEN, NEW_TOKENS = 4, 16, 32  # the JAX launch/serve.py defaults
 
 
 def check(cond: bool, msg: str) -> None:
@@ -239,6 +307,352 @@ def profile_episode(env: ChargaxEnv, policy, net, gen, episode_s: float) -> dict
     return summary
 
 
+def build_all() -> float:
+    """Phase 2: one nvcc per kernel source, all started together."""
+    builders = {
+        "chargax_step": ops.build_kernel,
+        "flash_attention": fa_ops.build_kernel,
+        "mamba2_ssd": ssd_ops.build_kernel,
+    }
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        path, log = fn()
+        return path, log, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(builders)) as pool:
+        futures = {name: pool.submit(timed, fn) for name, fn in builders.items()}
+        results = {name: f.result() for name, f in futures.items()}
+    total_s = time.perf_counter() - t0
+    for name, (path, log, secs) in results.items():
+        print(f"build: {name} -> {path.name} in {secs:.2f} s")
+        for line in log.splitlines():
+            if "registers" in line or "error" in line.lower():
+                print(f"  nvcc: {line.strip()}")
+    print(f"build: all kernels in {total_s:.2f} s")
+    return total_s
+
+
+def _randn(shape, gen, dev, dtype) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+def flash_vs_plain(dev: torch.device) -> float:
+    """Phase 8.  Returns the largest abs error over every case."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for b, hq, hkv, lq, lk, d in FA_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = _randn((b, hq, lq, d), gen, dev, dtype)
+            k = _randn((b, hkv, lk, d), gen, dev, dtype)
+            v = _randn((b, hkv, lk, d), gen, dev, dtype)
+            errs = {}
+            for name, kw in FA_VARIANTS.items():
+                got = fa_ops.flash_attention(q, k, v, **kw)
+                want = mha_blocked(q, k, v, **kw)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(got).all()), f"flash {name} {q.shape}: not finite")
+                errs[name] = float((got.float() - want.float()).abs().max())
+                check(
+                    torch.allclose(got.float(), want.float(), **FA_TOL[dtype]),
+                    f"flash vs plain {name} {(b, hq, hkv, lq, lk, d)} {dtype}: "
+                    f"max abs err {errs[name]}",
+                )
+            worst[dtype] = max(worst[dtype], *errs.values())
+            print(
+                f"flash vs plain {(b, hq, hkv, lq, lk, d)} {str(dtype)[6:]}: "
+                + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
+            )
+    print(f"flash vs plain: max abs err fp32 {worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}")
+    return max(worst.values())
+
+
+def ssd_inputs(shape, dtype, gen, dev):
+    b, l, h, p, n = shape
+    x = _randn((b, l, h, p), gen, dev, dtype)
+    dt = F.softplus(torch.randn((b, l, h), generator=gen, device=dev) - 1.0) + 1e-3
+    a = -torch.exp(torch.randn((h,), generator=gen, device=dev) * 0.5)
+    bm = (torch.randn((b, l, n), generator=gen, device=dev) / n**0.5).to(dtype)
+    cm = (torch.randn((b, l, n), generator=gen, device=dev) / n**0.5).to(dtype)
+    return x, dt, a, bm, cm
+
+
+def ssd_vs_plain(dev: torch.device) -> float:
+    """Phase 9.  Returns the largest abs error over every case (y and state)."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for shape in SSD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = ssd_inputs(shape, dtype, gen, dev)
+            y, s = ssd_ops.ssd(*args)
+            y_want, s_want = ssd_chunked(*args)
+            torch.cuda.synchronize()
+            errs = {}
+            for name, g, w, tol in (
+                ("y", y.float(), y_want.float(), SSD_TOL[dtype]),
+                ("state", s, s_want, SSD_TOL[torch.float32]),  # fp32 in both dtypes
+            ):
+                check(bool(torch.isfinite(g).all()), f"ssd {shape} {name}: not finite")
+                errs[name] = float((g - w).abs().max())
+                check(
+                    torch.allclose(g, w, **tol),
+                    f"ssd vs plain {shape} {dtype} {name}: max abs err {errs[name]}",
+                )
+            worst[dtype] = max(worst[dtype], *errs.values())
+            print(f"ssd vs plain {shape} {str(dtype)[6:]}: y={errs['y']:.3g} state={errs['state']:.3g}")
+    print(f"ssd vs plain: max abs err fp32 {worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}")
+    return max(worst.values())
+
+
+# Last-position logits of the 6-layer full-width fp32 model, card against CPU.
+# Both sides are fp32 throughout (TF32 off) with the same weights; they differ
+# only in the order of fp32 sums (cuBLAS against the CPU's GEMMs, the kernels'
+# tiles and the SSD kernel's 64-row chunks against the plain versions' 128),
+# about 1e-6 relative per reduction, compounding over 7 residual blocks to
+# about 1e-5 of the logits' scale.  The limit is ten times that.
+LM_CARD_VS_CPU_REL = 1e-4
+
+
+def lm_card_vs_cpu(dev: torch.device) -> None:
+    """Phase 10."""
+    cfg = dataclasses.replace(
+        get_config(ARCH), n_layers=6, param_dtype="float32", compute_dtype="float32"
+    )
+    cpu_model = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(10))
+    card_model = build_model(cfg, device=dev)
+    card_model.load_state_dict(cpu_model.state_dict())
+    check(len(card_model.groups) == 1, f"6 layers give {card_model.groups}")
+    tokens = torch.from_numpy(
+        np.random.default_rng(10).integers(0, cfg.vocab, (1, 256), dtype=np.int32)
+    )
+    want = make_prefill_step(cpu_model)({"tokens": tokens})
+    got = make_prefill_step(card_model)({"tokens": tokens.to(dev)}).cpu()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()), "card prefill logits not finite")
+    check(
+        err <= LM_CARD_VS_CPU_REL * scale,
+        f"card vs cpu prefill logits: max abs err {err} against {LM_CARD_VS_CPU_REL} x {scale}",
+    )
+    print(
+        f"lm card vs cpu (full width, 6 layers, fp32, B=1 L=256): last logits max abs err "
+        f"{err:.4g}, max |logit| {scale:.4g}, relative {err / scale:.3g} "
+        f"(limit {LM_CARD_VS_CPU_REL})"
+    )
+    del cpu_model, card_model
+
+    smoke = build_model(get_config(ARCH, smoke=True), device=dev)
+    smoke.init(torch.Generator(device=dev).manual_seed(0))
+    toks = torch.from_numpy(
+        np.random.default_rng(11).integers(0, smoke.cfg.vocab, (2, 8), dtype=np.int32)
+    ).to(dev)
+    with torch.inference_mode():
+        train = smoke.apply_train(toks)
+        cache = smoke.init_cache(2, 8)
+        steps = [smoke.decode_step(cache, toks[:, t : t + 1], t)[0][:, 0] for t in range(8)]
+    err = float((torch.stack(steps, dim=1) - train).abs().max())
+    check(
+        torch.allclose(torch.stack(steps, dim=1), train, rtol=2e-3, atol=2e-3),
+        f"smoke decode vs train on the card: max abs err {err}",
+    )
+    print(f"lm smoke decode==train on the card (fp32, 8 steps): max abs err {err:.3g}")
+
+
+def reset_launch_counts() -> None:
+    ops.chargax_step.launches = 0
+    fa_ops.flash_attention.launches = 0
+    ssd_ops.ssd.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {
+        "chargax_step": ops.chargax_step.launches,
+        "flash_attention": fa_ops.flash_attention.launches,
+        "mamba2_ssd": ssd_ops.ssd.launches,
+    }
+
+
+def serve_lm(dev: torch.device) -> tuple[dict, dict, object, dict]:
+    """Phase 11.  Returns (metrics, the prefill run's launch counts, the
+    prefill step, its batch)."""
+    cfg = get_config(ARCH)
+    model = build_model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+    check(cfg.n_layers == 38 and cfg.d_model == 2048 and model.dtype == torch.bfloat16, "config")
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = np.random.default_rng(11).integers(0, cfg.vocab, (PREFILL_B, PREFILL_L), dtype=np.int32)
+    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+    prefill = make_prefill_step(model)
+    prefill(batch)  # warm-up
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    logits = prefill(batch)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(
+        counts == {"chargax_step": 0, "flash_attention": 7, "mamba2_ssd": 38},
+        f"prefill launches {counts}, expected 7 flash_attention and 38 mamba2_ssd",
+    )
+    check(logits.shape == (PREFILL_B, cfg.vocab), f"prefill logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        prefill(batch)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    prefill_ms = statistics.median(times)
+    prefill_tok_s = PREFILL_B * PREFILL_L / (prefill_ms / 1000.0)
+    print(
+        f"prefill: zamba2-1.2b ({n_params} params, bf16) B={PREFILL_B} L={PREFILL_L}: "
+        f"median {prefill_ms:.3f} ms of 5 ({', '.join(f'{t:.3f}' for t in times)}), "
+        f"{prefill_tok_s:.0f} tokens/s, launches {counts}, peak memory {peak_gib:.3f} GiB"
+    )
+
+    prompts = torch.from_numpy(
+        np.random.default_rng(12).integers(0, cfg.vocab, (DECODE_B, PROMPT_LEN), dtype=np.int32)
+    )
+    seqs = generate(model, prompts, NEW_TOKENS)  # also the warm-up of the timed decode
+    torch.cuda.synchronize()
+    check(seqs.shape == (DECODE_B, PROMPT_LEN + NEW_TOKENS), f"generate shape {tuple(seqs.shape)}")
+    check(bool(((seqs >= 0) & (seqs < cfg.vocab)).all()), "generated tokens out of range")
+    check(torch.equal(seqs[:, :PROMPT_LEN].cpu(), prompts), "generate changed the prompt")
+
+    # the same decode, timed step by step
+    step = make_serve_step(model)
+    cache = model.init_cache(DECODE_B, PROMPT_LEN + NEW_TOKENS)
+    prompts_d = prompts.to(dev)
+    for t in range(PROMPT_LEN):
+        tok, cache = step(cache, prompts_d[:, t : t + 1], t)
+    stepped, lat = [tok], []
+    for t in range(PROMPT_LEN, PROMPT_LEN + NEW_TOKENS):
+        t0 = time.perf_counter()
+        tok, cache = step(cache, tok, t)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        stepped.append(tok)
+    check(
+        torch.equal(torch.cat(stepped[:NEW_TOKENS], dim=1), seqs[:, PROMPT_LEN:]),
+        "make_serve_step's tokens differ from generate's",
+    )
+    p50, p99 = (float(np.percentile(lat, q)) * 1000.0 for q in (50, 99))
+    decode_tok_s = DECODE_B * NEW_TOKENS / sum(lat)
+    print(
+        f"decode: B={DECODE_B}, prompt {PROMPT_LEN}, {NEW_TOKENS} new tokens, stepped tokens "
+        f"equal generate's: {decode_tok_s:.1f} tokens/s, p50 {p50:.3f} ms p99 {p99:.3f} ms per step"
+    )
+    metrics = {
+        "prefill_tokens_per_s": prefill_tok_s,
+        "prefill_ms": prefill_ms,
+        "prefill_peak_memory_gib": peak_gib,
+        "decode_tokens_per_s": decode_tok_s,
+        "decode_step_p50_ms": p50,
+        "decode_step_p99_ms": p99,
+    }
+    return metrics, counts, prefill, batch
+
+
+def flash_bound(b: int, h: int, l: int, d: int, elem_bytes: int) -> tuple[float, str, int, float]:
+    """Least time of a causal (B, H, L, D) attention on the card: q, k, v read
+    once and o written once, against QK^T and PV over the L(L+1)/2 live
+    pairs at the bf16 tensor-core peak."""
+    n_bytes = 4 * b * h * l * d * elem_bytes
+    n_ops = 4.0 * b * h * d * l * (l + 1) / 2
+    return _bound(n_bytes, n_ops)
+
+
+def ssd_bound(b: int, l: int, h: int, p: int, n: int, elem_bytes: int) -> tuple[float, str, int, float]:
+    """Least time of the SSD on the card: x, B, C (elem_bytes), dt (fp32)
+    read once, y written once and the fp32 state once, against the
+    chunk-dual products at the kernel's chunk (C.B^T and the intra
+    sum over the lower triangle, the inter sum and the state update) at
+    the bf16 tensor-core peak."""
+    n_bytes = (2 * b * l * h * p + 2 * b * l * n) * elem_bytes + 4 * (b * l * h + h + b * h * n * p)
+    q = ssd_ops.CHUNK
+    pairs = q * (q + 1) / 2
+    per_chunk = 2 * pairs * n + 2 * pairs * p + 2 * q * n * p + 2 * q * n * p
+    n_ops = per_chunk * math.ceil(l / q) * b * h
+    return _bound(n_bytes, n_ops)
+
+
+def _bound(n_bytes: int, n_ops: float) -> tuple[float, str, int, float]:
+    bytes_ms = n_bytes / PEAK_HBM_BYTES_PER_S * 1000.0
+    ops_ms = n_ops / PEAK_BF16_OPS_PER_S * 1000.0
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, n_ops
+
+
+def lm_kernel_times(dev: torch.device) -> dict[str, dict]:
+    """Phase 12: each LM kernel at its serving shape, in bf16, inputs rotated
+    over two copies (each copy alone is larger than the 50 MB L2)."""
+    cfg = get_config(ARCH)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    b, h, l, d = PREFILL_B, cfg.n_heads, PREFILL_L, cfg.hd
+    bf16 = torch.bfloat16
+    qkv = [tuple(_randn((b, h, l, d), gen, dev, bf16) for _ in range(3)) for _ in range(2)]
+    fa = functools.partial(fa_ops.flash_attention, causal=True)
+    out = {}
+    with torch.inference_mode():
+        kernel_ms = time_ms(fa, qkv)
+        plain_ms = time_ms(functools.partial(mha_blocked, causal=True), qkv, warmup=2, n=5)
+        sdpa_ms = time_ms(functools.partial(F.scaled_dot_product_attention, is_causal=True), qkv)
+    bound_ms, bound_by, n_bytes, n_ops = flash_bound(b, h, l, d, 2)
+    out["flash_attention"] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by, library_ms=sdpa_ms)
+    print(
+        f"kernel time flash_attention (B={b}, H={h}, L={l}, D={d}, bf16, causal): "
+        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {sdpa_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({n_bytes} bytes at 3.35 TB/s, {n_ops:.4g} flop at "
+        f"989 TFLOP/s bf16), achieved {bound_ms / kernel_ms:.4f} of bound"
+    )
+
+    shape = (b, l, 2 * cfg.d_model // cfg.ssm_head_dim, cfg.ssm_head_dim, cfg.ssm_state)
+    args = [ssd_inputs(shape, bf16, gen, dev) for _ in range(2)]
+    with torch.inference_mode():
+        kernel_ms = time_ms(ssd_ops.ssd, args)
+        plain_ms = time_ms(ssd_chunked, args, warmup=2, n=5)
+    bound_ms, bound_by, n_bytes, n_ops = ssd_bound(*shape, 2)
+    out["mamba2_ssd"] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=None)
+    print(
+        f"kernel time mamba2_ssd (B, L, H, P, N = {shape}, bf16): {kernel_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({n_bytes} bytes at 3.35 TB/s, "
+        f"{n_ops:.4g} flop at 989 TFLOP/s bf16), achieved {bound_ms / kernel_ms:.4f} of bound; "
+        f"no single PyTorch call computes it"
+    )
+    return out
+
+
+def profile_prefill(prefill, batch: dict, prefill_ms: float) -> dict:
+    """Phase 13: where the device time of one zamba2 prefill goes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prefill(batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(_device_time_us(e) for e in kernels) / 1000.0
+    by_name: dict[str, float] = {}  # kernels whose names share 80 characters are summed
+    for e in kernels:
+        by_name[e.key[:80]] = by_name.get(e.key[:80], 0.0) + _device_time_us(e) / 1000.0
+    top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:12]
+    if not busy_ms:
+        print("profile: device time not measured (the profiler recorded no CUDA kernel time)")
+    return {
+        "tokens": PREFILL_B * PREFILL_L,
+        "device_busy_ms": busy_ms or None,
+        "unprofiled_ms": prefill_ms,
+        "device_idle_share": 1.0 - busy_ms / prefill_ms if busy_ms else None,
+        "device_kernels": sum(e.count for e in kernels),
+        "top_kernels_ms": dict(top),
+    }
+
+
 def check_kpis(result: dict, label: str) -> None:
     check(all(math.isfinite(v) for v in result.values()), f"{label}: non-finite KPIs {result}")
     check(result["energy_delivered_kwh"] > 0, f"{label}: no energy delivered")
@@ -264,13 +678,7 @@ def main() -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
 
     # --- 2. build -----------------------------------------------------------------
-    t0 = time.perf_counter()
-    lib_path, log = ops.build_kernel()
-    build_s = time.perf_counter() - t0
-    print(f"build: {lib_path.name} in {build_s:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "error" in line.lower():
-            print(f"  nvcc: {line.strip()}")
+    build_s = build_all()
 
     # --- 3. kernel vs plain -------------------------------------------------------
     max_err, (slabs, pp, dt) = kernel_vs_plain(dev)
@@ -287,16 +695,20 @@ def main() -> int:
     evaluate(env, policy, net, gen, num_episodes=NUM_ENVS, device=dev)  # warm-up
 
     torch.cuda.reset_peak_memory_stats()
-    ops.chargax_step.launches = 0
+    reset_launch_counts()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     result = evaluate(env, policy, net, gen, num_episodes=NUM_ENVS, device=dev)
     end.record()
     torch.cuda.synchronize()
-    launches = ops.chargax_step.launches
+    episode_counts = launch_counts()
+    launches = episode_counts["chargax_step"]
     episode_s = start.elapsed_time(end) / 1000.0
     steps = env.config.episode_steps
-    check(launches == steps, f"chargax_step launched {launches} times, expected {steps}")
+    check(
+        episode_counts == {"chargax_step": steps, "flash_attention": 0, "mamba2_ssd": 0},
+        f"episode launches {episode_counts}, expected {steps} chargax_step",
+    )
     check_kpis(result, "ppo greedy")
     env_steps_per_s = NUM_ENVS * steps / episode_s
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -357,6 +769,24 @@ def main() -> int:
     # --- 7. profile ---------------------------------------------------------------
     print(json.dumps({"profile": profile_episode(env, policy, net, gen, episode_s)}))
 
+    # --- 8. flash kernel vs plain -------------------------------------------------
+    fa_err = flash_vs_plain(dev)
+
+    # --- 9. SSD kernel vs plain ---------------------------------------------------
+    ssd_err = ssd_vs_plain(dev)
+
+    # --- 10. LM on the card against the CPU ----------------------------------------
+    lm_card_vs_cpu(dev)
+
+    # --- 11. serving zamba2-1.2b --------------------------------------------------
+    lm_metrics, prefill_counts, prefill, batch = serve_lm(dev)
+
+    # --- 12. LM kernel time -------------------------------------------------------
+    lm_times = lm_kernel_times(dev)
+
+    # --- 13. profile of one prefill -----------------------------------------------
+    print(json.dumps({"prefill_profile": profile_prefill(prefill, batch, lm_metrics["prefill_ms"])}))
+
     metrics = {
         "env_steps_per_s": env_steps_per_s,
         "episode_s": episode_s,
@@ -367,22 +797,43 @@ def main() -> int:
         "build_s": build_s,
         "kernel_warm_ms": warm_ms,
         "peak_memory_gib": peak_gib,
+        **lm_metrics,
     }
     print(json.dumps({"metrics": metrics}))
-    kernel = {
-        "name": "chargax_step",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/chargax_step/csrc/chargax_step.cu",
-        "replaces": "src/repro/kernels/chargax_step/kernel.py:26",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None,  # no single PyTorch call computes this function
-    }
-    print(json.dumps({"kernels": [kernel]}))
+    kernels = [
+        {
+            "name": "chargax_step",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/chargax_step/csrc/chargax_step.cu",
+            "replaces": "src/repro/kernels/chargax_step/kernel.py:26",
+            "launches": launches,
+            "max_abs_err": max_err,
+            "ms": kernel_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,  # no single PyTorch call computes this function
+        },
+        {
+            "name": "flash_attention",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
+            "launches": prefill_counts["flash_attention"],
+            "max_abs_err": fa_err,
+            **lm_times["flash_attention"],
+        },
+        {
+            "name": "mamba2_ssd",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/mamba2_ssd/csrc/ssd.cu",
+            "replaces": "src/repro/kernels/mamba2_ssd/kernel.py:24",
+            "launches": prefill_counts["mamba2_ssd"],
+            "max_abs_err": ssd_err,
+            **lm_times["mamba2_ssd"],
+        },
+    ]
+    print(json.dumps({"kernels": kernels}))
     print(card)
     device = {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device}))

@@ -13,6 +13,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.state import EnvParams, EnvState, RewardWeights
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.lm import CausalLM
 from repro_torch.rl.networks import ActorCritic
 from repro_torch.utils import resolve_device
 
@@ -84,3 +86,53 @@ def env_params_from_numpy(
         },
         weights=weights,
     )
+
+
+def _tensor(x) -> torch.Tensor:
+    """A numpy array as a tensor; ``bfloat16`` arrays (what ``np.asarray``
+    gives for a JAX bf16 array) are carried bit for bit."""
+    a = np.array(x)  # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def lm_params_from_numpy(
+    tree: Mapping[str, Any], cfg: ModelConfig, *, device: torch.device | str | None = None
+) -> CausalLM:
+    """The JAX ``CausalLM.init`` tree (leaves as numpy arrays) -> the port's model.
+
+    Names match path for path; the JAX tree's leading layer axis of
+    ``layers`` is unstacked (``layers.<i>.…`` takes row ``i``).  Weights are
+    ``(in, out)`` on both sides.  Every leaf of ``tree`` must be used, with
+    the port's shape and dtype.
+    """
+    model = CausalLM(cfg, device=device)
+    used = set()
+    with torch.no_grad():
+        for name, param in model.named_parameters():
+            keys = name.split(".")
+            index = None
+            if keys[0] == "layers":
+                index, keys = int(keys[1]), [keys[0]] + keys[2:]
+            leaf = tree
+            for k in keys:
+                leaf = leaf[k]
+            value = _tensor(leaf if index is None else np.asarray(leaf)[index])
+            if value.shape != param.shape or value.dtype != param.dtype:
+                raise ValueError(
+                    f"{name}: JAX leaf {tuple(value.shape)} {value.dtype}, "
+                    f"port {tuple(param.shape)} {param.dtype}"
+                )
+            param.copy_(value)
+            used.add(tuple(keys))
+    unused = sorted(".".join(path) for path in _leaf_paths(tree) if path not in used)
+    if unused:
+        raise ValueError(f"the port has no parameter for the JAX leaves {unused}")
+    return model
+
+
+def _leaf_paths(tree, prefix: tuple[str, ...] = ()) -> list[tuple[str, ...]]:
+    if isinstance(tree, Mapping):
+        return [p for k, v in tree.items() for p in _leaf_paths(v, prefix + (k,))]
+    return [prefix]

@@ -1,8 +1,9 @@
 """Build, binding and dispatch of the fused Chargax station step.
 
 The CUDA kernel (``csrc/chargax_step.cu``) is compiled with ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface under ``build/`` at
-the repository root, at first use, and loaded with ``ctypes``.  A CUDA tensor
+``sm_90a`` into a shared library with a plain C interface under
+``build/chargax_step/`` at the repository root, at first use
+(:mod:`repro_torch.kernels._build`), and loaded with ``ctypes``.  A CUDA tensor
 launches it; a CPU tensor runs the plain version
 (:func:`repro_torch.kernels.chargax_step.ref.fused_step_ref`).  There is no
 fallback between the two: a CUDA tensor launches the kernel or raises.
@@ -26,10 +27,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -43,6 +40,7 @@ from repro_torch.core.transition import (
     charge_bookkeeping,
     grid_cap_kw,
 )
+from repro_torch.kernels._build import build, check_tensor
 from repro_torch.kernels.chargax_step.ref import (
     BIG,
     FusedOut,
@@ -54,46 +52,14 @@ from repro_torch.kernels.chargax_step.ref import (
 Tensor = torch.Tensor
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "chargax_step.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "chargax_step"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 MAX_POLES = 32  # one warp per env, lane = pole
 MAX_NODES = 32
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    return os.path.join(home, "bin", "nvcc")
-
-
 def build_kernel() -> tuple[Path, str]:
-    """Compile the kernel's shared library unless a build of this source exists.
-
-    Returns the library's path and nvcc's output (register and shared-memory
-    use from ``-Xptxas -v``; empty when the library was already built).  The
-    file name carries a hash of the source and flags, so an edited source is
-    rebuilt, and the library is written under a temporary name and renamed,
-    so a process never loads a file another is still writing.
-    """
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib = BUILD_DIR / f"libchargax_step_{digest.hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
+    """Compile the kernel into ``build/chargax_step/`` unless it is built
+    (see :func:`repro_torch.kernels._build.build`)."""
+    return build(SOURCE, "chargax_step")
 
 
 @functools.cache
@@ -104,17 +70,6 @@ def _library() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
-
-
-def _check(name: str, x: Tensor, device: torch.device, dtype: torch.dtype, shape) -> None:
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
 
 
 def _launch(slabs: PoleSlabs, pp: PoleParams, dt_hours: float, cap: Tensor) -> FusedOut:
@@ -128,12 +83,12 @@ def _launch(slabs: PoleSlabs, pp: PoleParams, dt_hours: float, cap: Tensor) -> F
         )
     f32 = torch.float32
     for name, x in zip(PoleSlabs._fields, slabs):
-        _check(name, x, dev, f32, (b, p))
-    _check("cap_kw", cap, dev, f32, (b,))
+        check_tensor(name, x, dev, f32, (b, p))
+    check_tensor("cap_kw", cap, dev, f32, (b,))
     for name in ("voltage", "imax", "eff", "power_w"):
-        _check(name, getattr(pp, name), dev, f32, (p,))
-    _check("member_bits", pp.member_bits, dev, torch.int32, (nn,))
-    _check("node_budget", pp.node_budget, dev, f32, (nn,))
+        check_tensor(name, getattr(pp, name), dev, f32, (p,))
+    check_tensor("member_bits", pp.member_bits, dev, torch.int32, (nn,))
+    check_tensor("node_budget", pp.node_budget, dev, f32, (nn,))
 
     outs = [torch.empty((b, p), device=dev, dtype=f32) for _ in range(5)]
     outs += [torch.empty((b,), device=dev, dtype=f32) for _ in range(2)]

@@ -1,0 +1,134 @@
+"""Build, binding and dispatch of flash attention.
+
+The CUDA kernel (``csrc/flash_attention.cu``) is compiled with ``nvcc`` for
+``sm_90a`` into ``build/flash_attention/`` at first use
+(:mod:`repro_torch.kernels._build`) and loaded with ``ctypes``.  A CUDA tensor
+launches it; a CPU tensor runs the plain version
+(:func:`repro_torch.kernels.flash_attention.ref.mha_blocked`).  There is no
+fallback between the two: a CUDA tensor launches the kernel or raises.
+
+The kernel has no backward: the serving path runs under
+``torch.inference_mode()``, and a CUDA input that requires grad raises.  The
+``autograd.Function`` whose backward recomputes through ``mha_blocked`` (as
+the JAX ``_bwd`` does) comes with LM training.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels._build import build, check_tensor
+from repro_torch.kernels.flash_attention.ref import mha_blocked
+
+Tensor = torch.Tensor
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's template instances
+DTYPES = (torch.float32, torch.bfloat16)
+CPU_BLOCK_K = 128  # kv block of the plain version (the JAX wrapper's block_k)
+
+
+def build_kernel() -> tuple[Path, str]:
+    """Compile the kernel into ``build/flash_attention/`` unless it is built."""
+    return build(SOURCE, "flash_attention")
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    path, _ = build_kernel()
+    lib = ctypes.CDLL(str(path))
+    fn = lib.flash_attention_launch
+    fn.argtypes = (
+        [ctypes.c_void_p] * 4
+        + [ctypes.c_int] * 9
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch(
+    q: Tensor,
+    k: Tensor,
+    v: Tensor,
+    *,
+    causal: bool,
+    window: int | None,
+    softcap: float | None,
+    scale: float,
+    q_offset: int,
+) -> Tensor:
+    dev = q.device
+    b, hq, lq, d = q.shape
+    if k.dim() != 4:
+        raise ValueError(f"k has shape {tuple(k.shape)}, expected (B, Hkv, Lk, D)")
+    hkv, lk = k.shape[1], k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head dims {HEAD_DIMS}, got D={d}")
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"q heads {hq} are not a multiple of kv heads {hkv}")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"softcap must be positive, got {softcap}")
+    check_tensor("q", q, dev, DTYPES, (b, hq, lq, d))
+    check_tensor("k", k, dev, q.dtype, (b, hkv, lk, d))
+    check_tensor("v", v, dev, q.dtype, (b, hkv, lk, d))
+    if any(t.requires_grad for t in (q, k, v)) and torch.is_grad_enabled():
+        raise RuntimeError(
+            "flash_attention has no backward kernel yet; run under torch.inference_mode()"
+        )
+
+    out = torch.empty_like(q)
+    if out.numel() == 0 or lk == 0:
+        return out.zero_()
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, hq, hkv, lq, lk, d, int(q.dtype == torch.bfloat16), int(causal),
+            window or 0, softcap or 0.0, scale, q_offset, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed with CUDA error {err}")
+    flash_attention.launches += 1
+    return out
+
+
+def flash_attention(
+    q: Tensor,  # (B, Hq, Lq, D)
+    k: Tensor,  # (B, Hkv, Lk, D)
+    v: Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    scale: float | None = None,
+    q_offset: int | None = None,
+) -> Tensor:
+    """IO-aware attention; ``q_offset=None`` puts the queries at the end of
+    the kv axis (``lk - lq``).  Returns ``(B, Hq, Lq, D)`` in q's dtype.
+
+    On CUDA tensors this launches the kernel (``flash_attention.launches``
+    rises by one); on CPU tensors it runs :func:`ref.mha_blocked`.
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    off = k.shape[2] - q.shape[2] if q_offset is None else q_offset
+    if q.device.type == "cpu":
+        return mha_blocked(
+            q, k, v, causal=causal, window=window, softcap=softcap, scale=scale,
+            q_offset=off, block_k=CPU_BLOCK_K,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device.type}")
+    return _launch(
+        q, k, v, causal=causal, window=window, softcap=softcap, scale=scale, q_offset=off
+    )
+
+
+flash_attention.launches = 0

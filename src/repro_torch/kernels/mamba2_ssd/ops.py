@@ -1,0 +1,113 @@
+"""Build, binding and dispatch of the Mamba2 SSD core.
+
+The CUDA kernel (``csrc/ssd.cu``) is compiled with ``nvcc`` for ``sm_90a``
+into ``build/mamba2_ssd/`` at first use (:mod:`repro_torch.kernels._build`)
+and loaded with ``ctypes``.  A CUDA tensor launches it; a CPU tensor runs the
+plain version (:func:`repro_torch.kernels.mamba2_ssd.ref.ssd_chunked`).  There
+is no fallback between the two: a CUDA tensor launches the kernel or raises.
+
+The kernel has no backward: the serving path runs under
+``torch.inference_mode()``, and a CUDA input that requires grad raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels._build import build, check_tensor
+from repro_torch.kernels.mamba2_ssd.ref import ssd_chunked, ssd_decode_step
+
+Tensor = torch.Tensor
+
+__all__ = ["ssd", "ssd_decode_step", "build_kernel"]
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
+DTYPES = (torch.float32, torch.bfloat16)
+MAX_DIM = 128  # N and P: multiples of 16 up to this
+CHUNK = 64  # the kernel's chunk rows, ``kChunk`` in csrc/ssd.cu
+
+
+def build_kernel() -> tuple[Path, str]:
+    """Compile the kernel into ``build/mamba2_ssd/`` unless it is built."""
+    return build(SOURCE, "mamba2_ssd")
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    path, _ = build_kernel()
+    lib = ctypes.CDLL(str(path))
+    fn = lib.ssd_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch(
+    x: Tensor, dt: Tensor, a: Tensor, b_mat: Tensor, c_mat: Tensor
+) -> tuple[Tensor, Tensor]:
+    dev = x.device
+    if x.dim() != 4:
+        raise ValueError(f"x has shape {tuple(x.shape)}, expected (B, L, H, P)")
+    bsz, l, h, p = x.shape
+    if b_mat.dim() != 3:
+        raise ValueError(f"b_mat has shape {tuple(b_mat.shape)}, expected (B, L, N)")
+    n = b_mat.shape[-1]
+    for name, dim in (("P", p), ("N", n)):
+        if dim % 16 or not 16 <= dim <= MAX_DIM:
+            raise ValueError(
+                f"ssd kernel takes {name} a multiple of 16 up to {MAX_DIM}, got {name}={dim}"
+            )
+    check_tensor("x", x, dev, DTYPES, (bsz, l, h, p))
+    check_tensor("dt", dt, dev, torch.float32, (bsz, l, h))
+    check_tensor("a", a, dev, torch.float32, (h,))
+    check_tensor("b_mat", b_mat, dev, x.dtype, (bsz, l, n))
+    check_tensor("c_mat", c_mat, dev, x.dtype, (bsz, l, n))
+    if any(t.requires_grad for t in (x, dt, a, b_mat, c_mat)) and torch.is_grad_enabled():
+        raise RuntimeError("ssd has no backward kernel yet; run under torch.inference_mode()")
+
+    y = torch.empty_like(x)
+    state = torch.empty((bsz, h, n, p), dtype=torch.float32, device=dev)
+    if bsz * h == 0:
+        return y, state
+    if l == 0:
+        return y, state.zero_()
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ssd_launch(
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
+            y.data_ptr(), state.data_ptr(), bsz, l, h, p, n,
+            int(x.dtype == torch.bfloat16), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"ssd kernel launch failed with CUDA error {err}")
+    ssd.launches += 1
+    return y, state
+
+
+def ssd(
+    x: Tensor,  # (B, L, H, P)
+    dt: Tensor,  # (B, L, H), positive, fp32
+    a: Tensor,  # (H,), negative, fp32
+    b_mat: Tensor,  # (B, L, N)
+    c_mat: Tensor,  # (B, L, N)
+) -> tuple[Tensor, Tensor]:
+    """Mamba2 SSD core: returns (y (B,L,H,P) in x's dtype, final_state
+    (B,H,N,P) in fp32).
+
+    On CUDA tensors this launches the kernel (``ssd.launches`` rises by one;
+    it walks chunks of ``CHUNK`` rows); on CPU tensors it runs
+    :func:`ref.ssd_chunked` at its default chunk.  The chunk-dual form is
+    exact for any chunk, so the two differ only in the order of fp32 sums.
+    """
+    if x.device.type == "cpu":
+        return ssd_chunked(x, dt, a, b_mat, c_mat)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd runs on cuda or cpu tensors, not {x.device.type}")
+    return _launch(x, dt, a, b_mat, c_mat)
+
+
+ssd.launches = 0

@@ -1,0 +1,203 @@
+"""Decoder-only causal LM for the hybrid family (zamba2): Mamba2 layers in
+groups, with one weight-shared attention block after every group (the JAX
+package's ``models/lm.py``; the dense, gemma2, moe and ssm families are not
+ported yet).
+
+The parameters live on the module as a tree whose names are the JAX tree's
+paths, with the JAX tree's leading layer axis unstacked into per-layer
+entries: ``embed``, ``final_norm``, ``layers.<i>.input_norm``,
+``layers.<i>.mamba.ssm_in_proj``, ``shared_attn.attn.q_proj``, ...  Weights
+keep the JAX ``(in, out)`` layout.  The serving path holds them without
+gradients; LM training is a later slice.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+from torch import nn
+
+from repro_torch.models import blocks
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.modules import _dtype, embed_param, rms_norm, softcap
+from repro_torch.utils import resolve_device
+
+Tensor = torch.Tensor
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors as a module: dicts become child trees, lists
+    ``nn.ModuleList``s of trees, tensors parameters.  ``tree["name"]`` reads
+    a child or parameter, so the blocks take a tree where the JAX package
+    passes a dict."""
+
+    def __init__(self, tree: dict[str, Any]):
+        super().__init__()
+        for name, value in tree.items():
+            if isinstance(value, dict):
+                self.add_module(name, ParamTree(value))
+            elif isinstance(value, list):
+                self.add_module(name, nn.ModuleList(ParamTree(v) for v in value))
+            else:
+                self.register_parameter(name, nn.Parameter(value, requires_grad=False))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+
+# ---------------------------------------------------------------------------
+# per-layer init/apply
+# ---------------------------------------------------------------------------
+def _ones(cfg: ModelConfig, dtype) -> Tensor:
+    return torch.ones((cfg.d_model,), dtype=dtype)
+
+
+def _init_dense_layer(generator, cfg: ModelConfig, dtype) -> dict:
+    return {
+        "attn": blocks.init_attention(generator, cfg, dtype),
+        "input_norm": _ones(cfg, dtype),
+        "pre_mlp_norm": _ones(cfg, dtype),
+        "mlp": blocks.init_mlp(generator, cfg, dtype),
+    }
+
+
+def _dense_layer_train(lp, x: Tensor, cfg: ModelConfig, window: int | None) -> Tensor:
+    h = rms_norm(x, lp["input_norm"], cfg.norm_eps)
+    x = x + blocks.attn_train(lp["attn"], h, cfg, window=window)
+    h = rms_norm(x, lp["pre_mlp_norm"], cfg.norm_eps)
+    return x + blocks.mlp_apply(lp["mlp"], h, cfg)
+
+
+def _dense_layer_decode(
+    lp, x_t: Tensor, cache: dict, pos: int, cfg: ModelConfig, window: int | None
+) -> Tensor:
+    h = rms_norm(x_t, lp["input_norm"], cfg.norm_eps)
+    a, _ = blocks.attn_decode(lp["attn"], h, cache, pos, cfg, window=window)
+    x_t = x_t + a
+    h = rms_norm(x_t, lp["pre_mlp_norm"], cfg.norm_eps)
+    return x_t + blocks.mlp_apply(lp["mlp"], h, cfg)
+
+
+def _init_mamba_layer(generator, cfg: ModelConfig, dtype) -> dict:
+    return {
+        "mamba": blocks.init_mamba2(generator, cfg, dtype),
+        "input_norm": _ones(cfg, dtype),
+    }
+
+
+def _mamba_layer_train(lp, x: Tensor, cfg: ModelConfig) -> Tensor:
+    return x + blocks.mamba2_train(lp["mamba"], rms_norm(x, lp["input_norm"], cfg.norm_eps), cfg)
+
+
+def _mamba_layer_decode(lp, x_t: Tensor, cache: dict, cfg: ModelConfig) -> Tensor:
+    y, _ = blocks.mamba2_decode(
+        lp["mamba"], rms_norm(x_t, lp["input_norm"], cfg.norm_eps), cache, cfg
+    )
+    return x_t + y
+
+
+# ---------------------------------------------------------------------------
+# LM
+# ---------------------------------------------------------------------------
+class CausalLM(ParamTree):
+    """The hybrid (zamba2) causal LM.
+
+    ``CausalLM(cfg, device=None)`` allocates the parameters on ``device``
+    (``None`` means the card) without drawing them; :meth:`init` draws them
+    from a generator, :func:`repro_torch.convert.lm_params_from_numpy` copies
+    a JAX tree in.  ``device="meta"`` gives the tree's names, shapes and
+    dtypes with nothing allocated.
+    """
+
+    def __init__(self, cfg: ModelConfig, *, device: torch.device | str | None = None):
+        if cfg.family != "hybrid":
+            raise ValueError(f"family {cfg.family!r} is not yet ported; the port has 'hybrid'")
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.dtype = _dtype(cfg.param_dtype)
+        bounds = list(range(0, cfg.n_layers, cfg.shared_attn_every)) + [cfg.n_layers]
+        self.groups = [(bounds[i], bounds[i + 1]) for i in range(len(bounds) - 1)]
+        with torch.device(dev):
+            tree = self._tree(None)
+        super().__init__(tree)
+
+    # -------------------------- init ---------------------------------
+    def _tree(self, generator: torch.Generator | None) -> dict:
+        """The parameter tree, drawn from ``generator`` (left undrawn when it
+        is None), in the JAX package's layout with the layer axis unstacked."""
+        cfg, dtype = self.cfg, self.dtype
+        return {
+            "embed": embed_param(generator, cfg.vocab, cfg.d_model, dtype),
+            "final_norm": _ones(cfg, dtype),
+            "layers": [_init_mamba_layer(generator, cfg, dtype) for _ in range(cfg.n_layers)],
+            "shared_attn": _init_dense_layer(generator, cfg, dtype),
+        }
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "CausalLM":
+        """Draw every parameter from ``generator`` (on the generator's device,
+        then copied onto the model's), as the JAX ``CausalLM.init`` draws from
+        its key: the same distributions, not the same numbers."""
+        with torch.device(generator.device):
+            fresh = ParamTree(self._tree(generator))
+        for p, v in zip(self.parameters(), fresh.parameters()):
+            p.copy_(v)
+        return self
+
+    # -------------------------- forward -------------------------------
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def apply_hidden(self, tokens: Tensor) -> Tensor:
+        """tokens (B, L) -> final hidden states (B, L, d) before the unembed.
+        (The JAX method also returns the MoE auxiliary loss; this family has
+        none.)"""
+        cfg = self.cfg
+        x = self.embed[tokens].to(_dtype(cfg.compute_dtype))
+        for start, end in self.groups:
+            for i in range(start, end):
+                x = _mamba_layer_train(self.layers[i], x, cfg)
+            x = _dense_layer_train(self.shared_attn, x, cfg, None)
+        return rms_norm(x, self.final_norm, cfg.norm_eps)
+
+    def apply_train(self, tokens: Tensor) -> Tensor:
+        """tokens (B, L) -> logits (B, L, V) fp32; materialises the full
+        logits (tests and small evaluations)."""
+        return self._unembed(self.apply_hidden(tokens))
+
+    def _unembed(self, x: Tensor) -> Tensor:
+        logits = (x @ self.embed.T.to(x.dtype)).float()  # tied embeddings
+        return softcap(logits, self.cfg.final_softcap)
+
+    # -------------------------- decode --------------------------------
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        """Zeroed caches on the model's device: per Mamba layer the conv window
+        and SSM state, and one KV cache per shared-attention site (its inputs
+        differ per site although the weights are tied)."""
+        cfg, dev = self.cfg, self.device
+        kv_dtype = _dtype(cfg.compute_dtype)
+        mamba = blocks.init_mamba_cache(cfg, batch, device=dev)
+        attn = blocks.init_attn_cache(cfg, batch, max_len, kv_dtype, device=dev)
+        n_sites = len(self.groups)
+        return {
+            "mamba": {k: v.new_zeros((cfg.n_layers,) + v.shape) for k, v in mamba.items()},
+            "shared_attn": {k: v.new_zeros((n_sites,) + v.shape) for k, v in attn.items()},
+        }
+
+    def decode_step(self, cache: dict, tokens_t: Tensor, pos: int) -> tuple[Tensor, dict]:
+        """tokens_t (B, 1) at position ``pos`` -> (logits (B, 1, V) fp32, cache).
+
+        The caches are updated in place (each layer and site writes its slice
+        of the stacked tensors), and the same dict is returned."""
+        cfg = self.cfg
+        x = self.embed[tokens_t].to(_dtype(cfg.compute_dtype))
+        mamba, shared = cache["mamba"], cache["shared_attn"]
+        for gi, (start, end) in enumerate(self.groups):
+            for i in range(start, end):
+                layer_cache = {k: v[i] for k, v in mamba.items()}
+                x = _mamba_layer_decode(self.layers[i], x, layer_cache, cfg)
+            site_cache = {k: v[gi] for k, v in shared.items()}
+            x = _dense_layer_decode(self.shared_attn, x, site_cache, pos, cfg, None)
+        x = rms_norm(x, self.final_norm, cfg.norm_eps)
+        return self._unembed(x), cache

@@ -1,0 +1,162 @@
+"""The port's flash attention against the JAX package's, and the CUDA kernel
+against its plain version.
+
+On the CPU the port's ``flash_attention`` runs its plain version
+(``ref.mha_blocked``); it is held against the JAX ``flash_attention`` in
+Pallas interpret mode, and the port's ``mha_reference`` against the JAX
+``ref.mha_reference``, on the same numpy inputs, at 2e-5 — the fp32
+tolerance the JAX package holds its own kernel to
+(``tests/kernels/test_flash_attention.py``).
+
+The CUDA kernel cannot run here: its case is marked ``cuda`` and skips
+without a card.  There a bf16 output may differ from the plain version's by
+one bf16 rounding (``rtol`` 2**-7) on top of fp32 noise.
+"""
+from __future__ import annotations
+
+import functools
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ref as jax_ref
+from repro.kernels.flash_attention.ops import flash_attention as jax_flash_attention
+from repro_torch.kernels.flash_attention import ops, ref
+
+TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=2**-7, atol=1e-3)}
+
+
+def _rand_qkv(seed: int, b, hq, hkv, lq, lk, d):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, hq, lq, d), dtype=np.float32)
+    k = rng.standard_normal((b, hkv, lk, d), dtype=np.float32)
+    v = rng.standard_normal((b, hkv, lk, d), dtype=np.float32)
+    return q, k, v
+
+
+@functools.cache
+def _jax_fn(impl: str, causal: bool, window, softcap, q_offset):
+    fn = jax_ref.mha_reference if impl == "naive" else functools.partial(
+        jax_flash_attention, impl="interpret"
+    )
+    return jax.jit(
+        lambda q, k, v: fn(q, k, v, causal=causal, window=window, softcap=softcap, q_offset=q_offset)
+    )
+
+
+# (b, hq, hkv, lq, lk, d, causal, window, softcap, q_offset)
+CASES = {
+    "mha_d64": (1, 2, 2, 128, 128, 64, True, None, None, None),
+    "gqa_g2": (2, 4, 2, 256, 256, 128, True, None, None, None),
+    "mqa_rect": (1, 8, 1, 128, 384, 128, True, None, None, None),
+    "unaligned": (1, 2, 2, 130, 200, 80, True, None, None, None),
+    "non_causal": (1, 2, 2, 128, 256, 64, False, None, None, None),
+    "window64": (1, 2, 2, 256, 256, 64, True, 64, None, None),
+    "window128": (1, 2, 2, 256, 256, 64, True, 128, None, None),
+    "window300": (1, 2, 2, 256, 256, 64, True, 300, None, None),
+    "softcap50": (1, 4, 2, 128, 128, 128, True, None, 50.0, None),
+    "decode_align": (2, 2, 2, 128, 512, 64, True, None, None, None),
+    "q_offset": (1, 2, 1, 64, 256, 32, True, None, None, 100),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_blocked_matches_jax_interpret_kernel(case):
+    b, hq, hkv, lq, lk, d, causal, window, softcap, q_offset = CASES[case]
+    q, k, v = _rand_qkv(list(CASES).index(case), b, hq, hkv, lq, lk, d)
+    want = np.asarray(_jax_fn("interpret", causal, window, softcap, q_offset)(q, k, v))
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(
+        *map(torch.from_numpy, (q, k, v)),
+        causal=causal, window=window, softcap=softcap, q_offset=q_offset,
+    )
+    assert ops.flash_attention.launches == before  # a CPU tensor runs the plain version
+    np.testing.assert_allclose(got.numpy(), want, **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("case", ["mha_d64", "unaligned", "window300", "softcap50", "q_offset"])
+def test_naive_reference_matches_jax(case):
+    b, hq, hkv, lq, lk, d, causal, window, softcap, q_offset = CASES[case]
+    q, k, v = _rand_qkv(7, b, hq, hkv, lq, lk, d)
+    want = np.asarray(_jax_fn("naive", causal, window, softcap, q_offset)(q, k, v))
+    got = ref.mha_reference(
+        *map(torch.from_numpy, (q, k, v)),
+        causal=causal, window=window, softcap=softcap, q_offset=q_offset,
+    )
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+
+
+def test_attention_mask_matches_jax():
+    for kw in (dict(causal=True), dict(causal=True, window=5), dict(causal=False, q_offset=3)):
+        want = np.asarray(jax_ref.attention_mask(16, 40, **kw))
+        np.testing.assert_array_equal(ref.attention_mask(16, 40, **kw).numpy(), want)
+    mask = ref.attention_mask(128, 512, causal=True)
+    assert bool(mask[0, 384]) and not bool(mask[0, 385])  # decode alignment
+
+
+def test_blocked_is_block_size_invariant_and_keeps_bf16():
+    q, k, v = (torch.from_numpy(t) for t in _rand_qkv(3, 1, 2, 2, 96, 300, 32))
+    small = ref.mha_blocked(q, k, v, block_k=64)
+    large = ref.mha_blocked(q, k, v, block_k=1024)
+    torch.testing.assert_close(small, large, atol=2e-5, rtol=2e-5)
+    out = ops.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+
+
+def _launch_args(**over):
+    q, k, v = (torch.from_numpy(t) for t in _rand_qkv(4, 1, 4, 2, 8, 8, 64))
+    args = dict(q=q, k=k, v=v)
+    args.update(over)
+    return args
+
+
+@pytest.mark.parametrize(
+    "over, match",
+    [
+        (dict(q=torch.zeros(1, 4, 8, 80), k=torch.zeros(1, 2, 8, 80), v=torch.zeros(1, 2, 8, 80)), "head dims"),
+        (dict(q=torch.zeros(1, 4, 8, 64, dtype=torch.float64)), "dtype"),
+        (dict(k=torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)), "dtype"),
+        (dict(v=torch.zeros(1, 2, 9, 64)), "v has shape"),
+        (dict(k=torch.zeros(1, 3, 8, 64), v=torch.zeros(1, 3, 8, 64)), "multiple of kv heads"),
+        (dict(q=torch.zeros(1, 4, 64, 8).transpose(2, 3)), "not contiguous"),
+    ],
+    ids=["bad_d", "float64", "mixed_dtype", "bad_shape", "bad_gqa", "non_contiguous"],
+)
+def test_kernel_wrapper_checks_inputs_before_launch(over, match):
+    before = ops.flash_attention.launches
+    args = _launch_args(**over)
+    with pytest.raises(ValueError, match=match):
+        ops._launch(**args, causal=True, window=None, softcap=None, scale=0.125, q_offset=0)
+    assert ops.flash_attention.launches == before
+
+
+def test_kernel_wrapper_refuses_grad_and_other_devices():
+    args = _launch_args()
+    args["q"].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        ops._launch(**args, causal=True, window=None, softcap=None, scale=0.125, q_offset=0)
+    meta = {k: t.detach().to("meta") for k, t in _launch_args().items()}
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ops.flash_attention(meta["q"], meta["k"], meta["v"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["mha_d64", "gqa_g2", "unaligned_d64", "window300", "softcap50"])
+def test_cuda_kernel_matches_plain_version(case, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the flash_attention kernel has no CPU mode")
+    key = "unaligned" if case == "unaligned_d64" else case
+    b, hq, hkv, lq, lk, d, causal, window, softcap, q_offset = CASES[key]
+    d = 64 if case == "unaligned_d64" else d
+    q, k, v = (torch.from_numpy(t).to("cuda", dtype) for t in _rand_qkv(5, b, hq, hkv, lq, lk, d))
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
+    want = ref.mha_blocked(q, k, v, **kw)
+    before = ops.flash_attention.launches
+    with torch.inference_mode():
+        got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
