@@ -7,8 +7,8 @@ kernels to its plain version.
 Phases, in order (any failure raises and the script exits non-zero):
 
 1. device: needs a CUDA card; prints its name and power limit; TF32 off;
-2. build: compiles the three CUDA kernels (chargax_step, flash_attention,
-   mamba2_ssd) from the checkout (nvcc, sm_90a, one nvcc each, all started
+2. build: compiles the four CUDA kernels (chargax_step, flash_attention,
+   mamba2_ssd, rwkv6_wkv) from the checkout (nvcc, sm_90a, one nvcc each, all started
    together) into build/, and prints each build's seconds and ptxas' report;
 3. kernel vs plain: the kernel against ``fused_step_ref`` on random slabs,
    B in {1, 300, 16384}, layouts paper_16 / deep_4x4 / kiosk_ac_4, with an
@@ -35,32 +35,50 @@ Phases, in order (any failure raises and the script exits non-zero):
    five (b, l, h, p, n) shapes up to the serving one, fp32 within 2e-4 (the
    JAX package's), bf16 y within one bf16 rounding (rtol 2**-7, atol 1e-3),
    the fp32 final state within 2e-4 in both dtypes;
-10. LM on the card against the CPU: zamba2 at full width with 6 layers
-   (one group, one shared-attention site) in fp32, the same weights on both
-   devices, last-position prefill logits of 256 tokens; then the smoke
-   config in fp32 on the card, teacher-forced logits against 8 cached
-   decode steps within 2e-3 (the JAX package's decode==train check);
+10. zamba2 on the card against the CPU: full width with 6 layers (one
+   group, one shared-attention site) in fp32, the same weights on both
+   devices, last-position prefill logits of 256 tokens; then the smoke config
+   in fp32 on the card, teacher-forced logits against 8 cached decode steps
+   within 2e-3 (the JAX package's decode==train check);
 11. serving: zamba2-1.2b at full width and depth (38 layers, bf16) from
    ``init`` with seed 0 under ``inference_mode``: ``make_prefill_step`` of
    4 x 4096 tokens with every kernel count reset just before and read just
-   after (exactly 7 flash and 38 SSD launches), median of 5 timed calls,
-   prefill tokens/s and peak memory; ``generate`` of 32 new tokens after a
-   16-token prompt at batch 4, then the same decode through
+   after (exactly 7 flash and 38 SSD launches, no other), median of 5 timed
+   calls, prefill tokens/s and peak memory; ``generate`` of 32 new tokens
+   after a 16-token prompt at batch 4, then the same decode through
    ``make_serve_step`` timed step by step, its tokens equal to generate's;
 12. kernel time of flash attention and SSD at the serving shapes beside
    their plain versions, their bounds and (flash) SDPA as a yardstick;
-13. profile: one more prefill under ``torch.profiler``: device busy ms, idle
-   share of the unprofiled prefill, kernels per prefill, top kernels.
+13. profile: one more zamba2 prefill under ``torch.profiler``: device busy
+   ms, idle share of the unprofiled prefill, kernels per prefill, top
+   kernels; then the zamba2 model is freed;
+14. wkv kernel vs plain: ``wkv`` against ``wkv_chunked`` (y and final
+   state), five (b, l, h, k, v) shapes up to rwkv6-3b's serving one (a
+   ragged L = 200, V = 128, K = V = 128), fp32 and bf16 with w in fp32 (as
+   on the path) and in bf16, each also under the strong decay w = 1e-12: fp32
+   within 3e-4 (the JAX package's), bf16 y within one bf16 rounding (rtol
+   2**-7, atol 1e-3), the fp32 final state within 3e-4, all finite;
+15. rwkv6 on the card against the CPU, as phase 10: full width with 2
+   layers in fp32, last-position logits of 200 tokens (untied unembed);
+   the smoke config's decode==train within 2e-3;
+16. serving rwkv6-3b at full width and depth (32 layers, bf16, seed 0), as
+   phase 11: exactly 32 ``rwkv6_wkv`` launches per prefill and no other;
+17. kernel time of the wkv kernel at the serving shape beside its plain
+   version and its bound (no PyTorch call computes it);
+18. profile: one rwkv6-3b prefill and 8 decode steps at batch 4 under
+   ``torch.profiler``: device busy ms per call, idle share, kernels, top
+   kernels.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and before that a ``{"kernels": [...]}``
-line with all three kernels.  Needs the repository's ``src/`` beside this
-file.
+line with all four kernels.  Needs the repository's ``src/`` beside this
+file.  Every path runs at its full depth.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import json
 import math
 import statistics
@@ -86,6 +104,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import mha_blocked  # noqa: E402
 from repro_torch.kernels.mamba2_ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.mamba2_ssd.ref import ssd_chunked  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv.ref import wkv_chunked  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.rl import evaluate, make_ppo_policy, max_charge_policy, serve  # noqa: E402
 from repro_torch.rl.networks import ActorCritic  # noqa: E402
@@ -103,7 +123,7 @@ OPS_PER_POLE_NODE = 6
 TOL = dict(rtol=1e-4, atol=2e-4)  # the JAX package's own kernel tolerance
 NUM_ENVS = 16384
 SERVE_BATCH = 131072
-ARCH = "zamba2-1.2b"
+ZAMBA, RWKV = "zamba2-1.2b", "rwkv6-3b"
 # (b, hq, hkv, lq, lk, d): MHA, GQA, MQA rectangular, unaligned, one decode
 # row over 4097 keys, the smoke config's D = 16, gemma2's D = 256, and
 # zamba2-1.2b's prefill at 4 x 4096 (the shape the main path launches)
@@ -128,6 +148,13 @@ SSD_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4), torch.bfloat16: dict(rtol=
 # (b, l, h, p, n); the last is zamba2-1.2b's serving shape
 SSD_SHAPES = [(1, 256, 2, 64, 64), (2, 128, 3, 128, 128), (2, 200, 4, 32, 16), (2, 8, 4, 32, 16),
               (4, 4096, 64, 64, 64)]
+# (b, l, h, k, v): one chunk pair, a ragged L, V = 128 (two V tiles), K = V =
+# 128, and rwkv6-3b's prefill at 4 x 4096 (the shape the main path launches)
+WKV_SHAPES = [(1, 128, 2, 64, 64), (2, 200, 3, 32, 32), (1, 256, 2, 64, 128), (2, 100, 2, 128, 128),
+              (4, 4096, 40, 64, 64)]
+# fp32: the JAX package's kernel tolerance (tests/kernels/test_rwkv6_wkv.py);
+# bf16 y: one bf16 rounding of the output, as for flash and SSD
+WKV_TOL = {torch.float32: dict(rtol=3e-4, atol=3e-4), torch.bfloat16: dict(rtol=2**-7, atol=1e-3)}
 PREFILL_B, PREFILL_L = 4, 4096
 DECODE_B, PROMPT_LEN, NEW_TOKENS = 4, 16, 32  # the JAX launch/serve.py defaults
 
@@ -313,6 +340,7 @@ def build_all() -> float:
         "chargax_step": ops.build_kernel,
         "flash_attention": fa_ops.build_kernel,
         "mamba2_ssd": ssd_ops.build_kernel,
+        "rwkv6_wkv": wkv_ops.build_kernel,
     }
 
     def timed(fn):
@@ -405,44 +433,46 @@ def ssd_vs_plain(dev: torch.device) -> float:
     return max(worst.values())
 
 
-# Last-position logits of the 6-layer full-width fp32 model, card against CPU.
-# Both sides are fp32 throughout (TF32 off) with the same weights; they differ
-# only in the order of fp32 sums (cuBLAS against the CPU's GEMMs, the kernels'
-# tiles and the SSD kernel's 64-row chunks against the plain versions' 128),
-# about 1e-6 relative per reduction, compounding over 7 residual blocks to
-# about 1e-5 of the logits' scale.  The limit is ten times that.
+# Last-position logits of a full-width fp32 model cut to a few layers (zamba2:
+# 6, rwkv6: 2), card against CPU.  Both sides are fp32 throughout (TF32 off)
+# with the same weights; they differ only in the order of fp32 sums (cuBLAS
+# against the CPU's GEMMs, the kernels' tiles and chunks against the plain
+# versions'), about 1e-6 relative per reduction, compounding over a few
+# residual blocks to about 1e-5 of the logits' scale.  The limit is ten times
+# that.
 LM_CARD_VS_CPU_REL = 1e-4
 
 
-def lm_card_vs_cpu(dev: torch.device) -> None:
-    """Phase 10."""
+def lm_card_vs_cpu(dev: torch.device, arch: str, n_layers: int, length: int) -> None:
+    """Phases 10 and 15."""
     cfg = dataclasses.replace(
-        get_config(ARCH), n_layers=6, param_dtype="float32", compute_dtype="float32"
+        get_config(arch), n_layers=n_layers, param_dtype="float32", compute_dtype="float32"
     )
     cpu_model = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(10))
     card_model = build_model(cfg, device=dev)
     card_model.load_state_dict(cpu_model.state_dict())
-    check(len(card_model.groups) == 1, f"6 layers give {card_model.groups}")
+    if cfg.family == "hybrid":
+        check(len(card_model.groups) == 1, f"{n_layers} layers give {card_model.groups}")
     tokens = torch.from_numpy(
-        np.random.default_rng(10).integers(0, cfg.vocab, (1, 256), dtype=np.int32)
+        np.random.default_rng(10).integers(0, cfg.vocab, (1, length), dtype=np.int32)
     )
     want = make_prefill_step(cpu_model)({"tokens": tokens})
     got = make_prefill_step(card_model)({"tokens": tokens.to(dev)}).cpu()
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
-    check(bool(torch.isfinite(got).all()), "card prefill logits not finite")
+    check(bool(torch.isfinite(got).all()), f"{arch} card prefill logits not finite")
     check(
         err <= LM_CARD_VS_CPU_REL * scale,
-        f"card vs cpu prefill logits: max abs err {err} against {LM_CARD_VS_CPU_REL} x {scale}",
+        f"{arch} card vs cpu prefill logits: max abs err {err} against {LM_CARD_VS_CPU_REL} x {scale}",
     )
     print(
-        f"lm card vs cpu (full width, 6 layers, fp32, B=1 L=256): last logits max abs err "
-        f"{err:.4g}, max |logit| {scale:.4g}, relative {err / scale:.3g} "
+        f"lm card vs cpu ({arch}, full width, {n_layers} layers, fp32, B=1 L={length}): last "
+        f"logits max abs err {err:.4g}, max |logit| {scale:.4g}, relative {err / scale:.3g} "
         f"(limit {LM_CARD_VS_CPU_REL})"
     )
     del cpu_model, card_model
 
-    smoke = build_model(get_config(ARCH, smoke=True), device=dev)
+    smoke = build_model(get_config(arch, smoke=True), device=dev)
     smoke.init(torch.Generator(device=dev).manual_seed(0))
     toks = torch.from_numpy(
         np.random.default_rng(11).integers(0, smoke.cfg.vocab, (2, 8), dtype=np.int32)
@@ -454,15 +484,16 @@ def lm_card_vs_cpu(dev: torch.device) -> None:
     err = float((torch.stack(steps, dim=1) - train).abs().max())
     check(
         torch.allclose(torch.stack(steps, dim=1), train, rtol=2e-3, atol=2e-3),
-        f"smoke decode vs train on the card: max abs err {err}",
+        f"{arch} smoke decode vs train on the card: max abs err {err}",
     )
-    print(f"lm smoke decode==train on the card (fp32, 8 steps): max abs err {err:.3g}")
+    print(f"lm smoke decode==train on the card ({arch}, fp32, 8 steps): max abs err {err:.3g}")
 
 
 def reset_launch_counts() -> None:
     ops.chargax_step.launches = 0
     fa_ops.flash_attention.launches = 0
     ssd_ops.ssd.launches = 0
+    wkv_ops.wkv.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
@@ -470,15 +501,16 @@ def launch_counts() -> dict[str, int]:
         "chargax_step": ops.chargax_step.launches,
         "flash_attention": fa_ops.flash_attention.launches,
         "mamba2_ssd": ssd_ops.ssd.launches,
+        "rwkv6_wkv": wkv_ops.wkv.launches,
     }
 
 
-def serve_lm(dev: torch.device) -> tuple[dict, dict, object, dict]:
-    """Phase 11.  Returns (metrics, the prefill run's launch counts, the
-    prefill step, its batch)."""
-    cfg = get_config(ARCH)
+def serve_lm(dev: torch.device, arch: str, expect_counts: dict[str, int]) -> tuple:
+    """Phases 11 and 16.  Returns (metrics, the prefill run's launch counts,
+    the model, the prefill step, its batch)."""
+    cfg = get_config(arch)
     model = build_model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
-    check(cfg.n_layers == 38 and cfg.d_model == 2048 and model.dtype == torch.bfloat16, "config")
+    check(model.dtype == torch.bfloat16, f"{arch} runs in {model.dtype}")
     n_params = sum(p.numel() for p in model.parameters())
     tokens = np.random.default_rng(11).integers(0, cfg.vocab, (PREFILL_B, PREFILL_L), dtype=np.int32)
     batch = {"tokens": torch.from_numpy(tokens).to(dev)}
@@ -491,10 +523,7 @@ def serve_lm(dev: torch.device) -> tuple[dict, dict, object, dict]:
     logits = prefill(batch)
     torch.cuda.synchronize()
     counts = launch_counts()
-    check(
-        counts == {"chargax_step": 0, "flash_attention": 7, "mamba2_ssd": 38},
-        f"prefill launches {counts}, expected 7 flash_attention and 38 mamba2_ssd",
-    )
+    check(counts == expect_counts, f"{arch} prefill launches {counts}, expected {expect_counts}")
     check(logits.shape == (PREFILL_B, cfg.vocab), f"prefill logits {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -510,7 +539,7 @@ def serve_lm(dev: torch.device) -> tuple[dict, dict, object, dict]:
     prefill_ms = statistics.median(times)
     prefill_tok_s = PREFILL_B * PREFILL_L / (prefill_ms / 1000.0)
     print(
-        f"prefill: zamba2-1.2b ({n_params} params, bf16) B={PREFILL_B} L={PREFILL_L}: "
+        f"prefill: {arch} ({n_params} params, bf16) B={PREFILL_B} L={PREFILL_L}: "
         f"median {prefill_ms:.3f} ms of 5 ({', '.join(f'{t:.3f}' for t in times)}), "
         f"{prefill_tok_s:.0f} tokens/s, launches {counts}, peak memory {peak_gib:.3f} GiB"
     )
@@ -544,7 +573,7 @@ def serve_lm(dev: torch.device) -> tuple[dict, dict, object, dict]:
     p50, p99 = (float(np.percentile(lat, q)) * 1000.0 for q in (50, 99))
     decode_tok_s = DECODE_B * NEW_TOKENS / sum(lat)
     print(
-        f"decode: B={DECODE_B}, prompt {PROMPT_LEN}, {NEW_TOKENS} new tokens, stepped tokens "
+        f"decode: {arch} B={DECODE_B}, prompt {PROMPT_LEN}, {NEW_TOKENS} new tokens, stepped tokens "
         f"equal generate's: {decode_tok_s:.1f} tokens/s, p50 {p50:.3f} ms p99 {p99:.3f} ms per step"
     )
     metrics = {
@@ -555,7 +584,7 @@ def serve_lm(dev: torch.device) -> tuple[dict, dict, object, dict]:
         "decode_step_p50_ms": p50,
         "decode_step_p99_ms": p99,
     }
-    return metrics, counts, prefill, batch
+    return metrics, counts, model, prefill, batch
 
 
 def flash_bound(b: int, h: int, l: int, d: int, elem_bytes: int) -> tuple[float, str, int, float]:
@@ -590,7 +619,7 @@ def _bound(n_bytes: int, n_ops: float) -> tuple[float, str, int, float]:
 def lm_kernel_times(dev: torch.device) -> dict[str, dict]:
     """Phase 12: each LM kernel at its serving shape, in bf16, inputs rotated
     over two copies (each copy alone is larger than the 50 MB L2)."""
-    cfg = get_config(ARCH)
+    cfg = get_config(ZAMBA)
     gen = torch.Generator(device=dev).manual_seed(12)
     b, h, l, d = PREFILL_B, cfg.n_heads, PREFILL_L, cfg.hd
     bf16 = torch.bfloat16
@@ -628,29 +657,134 @@ def lm_kernel_times(dev: torch.device) -> dict[str, dict]:
     return out
 
 
-def profile_prefill(prefill, batch: dict, prefill_ms: float) -> dict:
-    """Phase 13: where the device time of one zamba2 prefill goes."""
+def profile_device(fn, calls: int, unprofiled_ms: float) -> dict:
+    """Where the device time of ``calls`` calls of ``fn`` goes, per call:
+    device busy ms, its idle share of ``unprofiled_ms`` (one call's time
+    without the profiler), device kernels and the kernels that take most."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        prefill(batch)
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(_device_time_us(e) for e in kernels) / 1000.0
+    busy_ms = sum(_device_time_us(e) for e in kernels) / 1000.0 / calls
     by_name: dict[str, float] = {}  # kernels whose names share 80 characters are summed
     for e in kernels:
-        by_name[e.key[:80]] = by_name.get(e.key[:80], 0.0) + _device_time_us(e) / 1000.0
+        by_name[e.key[:80]] = by_name.get(e.key[:80], 0.0) + _device_time_us(e) / 1000.0 / calls
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:12]
     if not busy_ms:
         print("profile: device time not measured (the profiler recorded no CUDA kernel time)")
     return {
-        "tokens": PREFILL_B * PREFILL_L,
-        "device_busy_ms": busy_ms or None,
-        "unprofiled_ms": prefill_ms,
-        "device_idle_share": 1.0 - busy_ms / prefill_ms if busy_ms else None,
-        "device_kernels": sum(e.count for e in kernels),
-        "top_kernels_ms": dict(top),
+        "calls": calls,
+        "device_busy_ms_per_call": busy_ms or None,
+        "unprofiled_ms_per_call": unprofiled_ms,
+        "device_idle_share": 1.0 - busy_ms / unprofiled_ms if busy_ms else None,
+        "device_kernels_per_call": sum(e.count for e in kernels) / calls,
+        "top_kernels_ms_per_call": dict(top),
     }
+
+
+def profile_decode(model, step_ms: float, steps: int = 8) -> dict:
+    """``steps`` greedy decode steps at batch DECODE_B under the profiler,
+    after as many unprofiled ones; ``step_ms`` is a step's unprofiled time."""
+    step = make_serve_step(model)
+    cache = model.init_cache(DECODE_B, 2 * steps)
+    tok = torch.zeros((DECODE_B, 1), dtype=torch.int32, device=model.device)
+    for t in range(steps):
+        tok, cache = step(cache, tok, t)
+    positions = iter(range(steps, 2 * steps))
+
+    def one_step() -> None:
+        nonlocal tok
+        tok, _ = step(cache, tok, next(positions))
+
+    return profile_device(one_step, steps, step_ms)
+
+
+def wkv_inputs(shape, dtype, gen, dev, w_dtype=torch.float32, strong: bool = False):
+    """r, k, v in ``dtype``; the decay w = exp(-exp(x - 2)) in ``w_dtype``
+    (fp32 on the model's path), or 1e-12 everywhere (``strong``); u fp32."""
+    b, l, h, kd, vd = shape
+    r = (torch.randn((b, l, h, kd), generator=gen, device=dev) / kd**0.5).to(dtype)
+    k = (torch.randn((b, l, h, kd), generator=gen, device=dev) / kd**0.5).to(dtype)
+    v = _randn((b, l, h, vd), gen, dev, dtype)
+    w = torch.exp(-torch.exp(torch.randn((b, l, h, kd), generator=gen, device=dev) - 2.0))
+    if strong:
+        w = torch.full_like(w, 1e-12)
+    u = torch.randn((h, kd), generator=gen, device=dev) * 0.3
+    return r, k, v, w.to(w_dtype), u
+
+
+def wkv_vs_plain(dev: torch.device) -> float:
+    """Phase 14.  Returns the largest abs error over every case (y and state)."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for shape in WKV_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for w_dtype in sorted({torch.float32, dtype}, key=str):
+                for strong in (False, True):
+                    args = wkv_inputs(shape, dtype, gen, dev, w_dtype, strong)
+                    with torch.inference_mode():
+                        y, s = wkv_ops.wkv(*args)
+                        y_want, s_want = wkv_chunked(*args)
+                    torch.cuda.synchronize()
+                    label = f"{shape} {str(dtype)[6:]} w {str(w_dtype)[6:]}{' strong decay' if strong else ''}"
+                    errs = {}
+                    for name, g, want, tol in (
+                        ("y", y.float(), y_want.float(), WKV_TOL[dtype]),
+                        ("state", s, s_want, WKV_TOL[torch.float32]),  # fp32 in both dtypes
+                    ):
+                        check(bool(torch.isfinite(g).all()), f"wkv {label} {name}: not finite")
+                        errs[name] = float((g - want).abs().max())
+                        check(
+                            torch.allclose(g, want, **tol),
+                            f"wkv vs plain {label} {name}: max abs err {errs[name]}",
+                        )
+                    worst[dtype] = max(worst[dtype], *errs.values())
+                    print(f"wkv vs plain {label}: y={errs['y']:.3g} state={errs['state']:.3g}")
+    print(f"wkv vs plain: max abs err fp32 {worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}")
+    return max(worst.values())
+
+
+def wkv_bound(b: int, l: int, h: int, kd: int, vd: int, elem_bytes: int, w_bytes: int):
+    """Least time of the WKV on the card: r, k, v (elem_bytes), w (w_bytes)
+    and u (fp32) read once, y written once and the fp32 state once, against
+    the operations of the chunked form at the kernel's chunk (per pair j < i
+    and channel: the exponent's difference, its exp, two products and the
+    sum; the score times v; the bonus; the inter-chunk product with its
+    exp(cs) factors; the state update with its exp(total - cw) factors) at
+    the bf16 tensor-core peak."""
+    n_bytes = (2 * b * l * h * kd + 2 * b * l * h * vd) * elem_bytes + b * l * h * kd * w_bytes
+    n_bytes += 4 * (h * kd + b * h * kd * vd)
+    q = wkv_ops.CHUNK
+    pairs = q * (q - 1) / 2
+    per_chunk = (5 * pairs * kd + 2 * pairs * vd + 3 * q * kd + 2 * q * vd
+                 + 2 * q * kd + 2 * q * kd * vd + 2 * q * kd + 2 * q * kd * vd + 2 * kd * vd + kd)
+    n_ops = per_chunk * math.ceil(l / q) * b * h
+    return _bound(n_bytes, n_ops)
+
+
+def wkv_kernel_time(dev: torch.device) -> dict:
+    """Phase 17: the WKV kernel at rwkv6-3b's serving shape (r/k/v bf16, w
+    fp32, as the model gives them), inputs rotated over two copies (each
+    larger than the 50 MB L2)."""
+    cfg = get_config(RWKV)
+    h = cfg.d_model // cfg.rwkv_head_dim
+    shape = (PREFILL_B, PREFILL_L, h, cfg.rwkv_head_dim, cfg.rwkv_head_dim)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    args = [wkv_inputs(shape, torch.bfloat16, gen, dev) for _ in range(2)]
+    with torch.inference_mode():
+        kernel_ms = time_ms(wkv_ops.wkv, args)
+        plain_ms = time_ms(wkv_chunked, args, warmup=2, n=5)
+    bound_ms, bound_by, n_bytes, n_ops = wkv_bound(*shape, 2, 4)
+    print(
+        f"kernel time rwkv6_wkv (B, L, H, K, V = {shape}, r/k/v bf16, w fp32): {kernel_ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({n_bytes} bytes at "
+        f"3.35 TB/s, {n_ops:.4g} operations at 989 TFLOP/s bf16), achieved "
+        f"{bound_ms / kernel_ms:.4f} of bound; no single PyTorch call computes it"
+    )
+    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def check_kpis(result: dict, label: str) -> None:
@@ -706,7 +840,8 @@ def main() -> int:
     episode_s = start.elapsed_time(end) / 1000.0
     steps = env.config.episode_steps
     check(
-        episode_counts == {"chargax_step": steps, "flash_attention": 0, "mamba2_ssd": 0},
+        episode_counts
+        == {"chargax_step": steps, "flash_attention": 0, "mamba2_ssd": 0, "rwkv6_wkv": 0},
         f"episode launches {episode_counts}, expected {steps} chargax_step",
     )
     check_kpis(result, "ppo greedy")
@@ -775,17 +910,42 @@ def main() -> int:
     # --- 9. SSD kernel vs plain ---------------------------------------------------
     ssd_err = ssd_vs_plain(dev)
 
-    # --- 10. LM on the card against the CPU ----------------------------------------
-    lm_card_vs_cpu(dev)
+    # --- 10. zamba2 on the card against the CPU ------------------------------------
+    lm_card_vs_cpu(dev, ZAMBA, n_layers=6, length=256)
 
     # --- 11. serving zamba2-1.2b --------------------------------------------------
-    lm_metrics, prefill_counts, prefill, batch = serve_lm(dev)
+    zamba_counts = {"chargax_step": 0, "flash_attention": 7, "mamba2_ssd": 38, "rwkv6_wkv": 0}
+    zamba_metrics, zamba_launches, model, prefill, batch = serve_lm(dev, ZAMBA, zamba_counts)
 
     # --- 12. LM kernel time -------------------------------------------------------
     lm_times = lm_kernel_times(dev)
 
-    # --- 13. profile of one prefill -----------------------------------------------
-    print(json.dumps({"prefill_profile": profile_prefill(prefill, batch, lm_metrics["prefill_ms"])}))
+    # --- 13. profile of one zamba2 prefill ------------------------------------------
+    prefill_profile = profile_device(lambda: prefill(batch), 1, zamba_metrics["prefill_ms"])
+    print(json.dumps({"prefill_profile": {"arch": ZAMBA, **prefill_profile}}))
+    del model, prefill, batch  # each model's peak memory is its own
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- 14. wkv kernel vs plain --------------------------------------------------
+    wkv_err = wkv_vs_plain(dev)
+
+    # --- 15. rwkv6 on the card against the CPU ------------------------------------
+    lm_card_vs_cpu(dev, RWKV, n_layers=2, length=200)
+
+    # --- 16. serving rwkv6-3b -----------------------------------------------------
+    rwkv_counts = {"chargax_step": 0, "flash_attention": 0, "mamba2_ssd": 0, "rwkv6_wkv": 32}
+    rwkv_metrics, rwkv_launches, model, prefill, batch = serve_lm(dev, RWKV, rwkv_counts)
+
+    # --- 17. wkv kernel time ------------------------------------------------------
+    wkv_times = wkv_kernel_time(dev)
+
+    # --- 18. profile of one rwkv6-3b prefill and of decode steps -------------------
+    prefill_profile = profile_device(lambda: prefill(batch), 1, rwkv_metrics["prefill_ms"])
+    print(json.dumps({"prefill_profile": {"arch": RWKV, **prefill_profile}}))
+    decode_profile = profile_decode(model, rwkv_metrics["decode_step_p50_ms"])
+    print(json.dumps({"decode_profile": {"arch": RWKV, "batch": DECODE_B, **decode_profile}}))
+    del model, prefill, batch
 
     metrics = {
         "env_steps_per_s": env_steps_per_s,
@@ -797,7 +957,8 @@ def main() -> int:
         "build_s": build_s,
         "kernel_warm_ms": warm_ms,
         "peak_memory_gib": peak_gib,
-        **lm_metrics,
+        ZAMBA: zamba_metrics,
+        RWKV: rwkv_metrics,
     }
     print(json.dumps({"metrics": metrics}))
     kernels = [
@@ -819,7 +980,7 @@ def main() -> int:
             "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
-            "launches": prefill_counts["flash_attention"],
+            "launches": zamba_launches["flash_attention"],
             "max_abs_err": fa_err,
             **lm_times["flash_attention"],
         },
@@ -828,9 +989,18 @@ def main() -> int:
             "route": "cuda",
             "source": "src/repro_torch/kernels/mamba2_ssd/csrc/ssd.cu",
             "replaces": "src/repro/kernels/mamba2_ssd/kernel.py:24",
-            "launches": prefill_counts["mamba2_ssd"],
+            "launches": zamba_launches["mamba2_ssd"],
             "max_abs_err": ssd_err,
             **lm_times["mamba2_ssd"],
+        },
+        {
+            "name": "rwkv6_wkv",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/rwkv6_wkv/csrc/wkv.cu",
+            "replaces": "src/repro/kernels/rwkv6_wkv/kernel.py:22",
+            "launches": rwkv_launches["rwkv6_wkv"],
+            "max_abs_err": wkv_err,
+            **wkv_times,
         },
     ]
     print(json.dumps({"kernels": kernels}))

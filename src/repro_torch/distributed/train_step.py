@@ -39,6 +39,6 @@ def make_prefill_step(model) -> Callable:
     def prefill(batch: dict) -> Tensor:
         x = model.apply_hidden(batch["tokens"])
         last = x[:, -1, :]
-        return (last @ model.embed.T.to(last.dtype)).float()
+        return (last @ model.unembed_weight.to(last.dtype)).float()
 
     return prefill

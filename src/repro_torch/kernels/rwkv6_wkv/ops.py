@@ -1,0 +1,114 @@
+"""Build, binding and dispatch of the RWKV6 WKV core.
+
+The CUDA kernel (``csrc/wkv.cu``) is compiled with ``nvcc`` for ``sm_90a``
+into ``build/rwkv6_wkv/`` at first use (:mod:`repro_torch.kernels._build`)
+and loaded with ``ctypes``.  A CUDA tensor launches it; a CPU tensor runs the
+plain version (:func:`repro_torch.kernels.rwkv6_wkv.ref.wkv_chunked`).  There
+is no fallback between the two: a CUDA tensor launches the kernel or raises.
+
+The kernel has no backward: the serving path runs under
+``torch.inference_mode()``, and a CUDA input that requires grad raises.
+Decode (:func:`wkv_decode_step`) is plain PyTorch, as it is jnp in the JAX
+package.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels._build import build, check_tensor
+from repro_torch.kernels.rwkv6_wkv.ref import wkv_chunked, wkv_decode_step
+
+Tensor = torch.Tensor
+
+__all__ = ["wkv", "wkv_decode_step", "build_kernel"]
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv.cu"
+DTYPES = (torch.float32, torch.bfloat16)
+MAX_DIM = 128  # K and V: multiples of 16 up to this
+CHUNK = 64  # the chunk of both versions, ``kChunk`` in csrc/wkv.cu
+
+
+def build_kernel() -> tuple[Path, str]:
+    """Compile the kernel into ``build/rwkv6_wkv/`` unless it is built."""
+    return build(SOURCE, "rwkv6_wkv")
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    path, _ = build_kernel()
+    lib = ctypes.CDLL(str(path))
+    fn = lib.wkv_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor) -> tuple[Tensor, Tensor]:
+    dev = r.device
+    if r.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"r {tuple(r.shape)} and v {tuple(v.shape)}: expected (B, L, H, K), (B, L, H, V)")
+    bsz, l, h, kd = r.shape
+    vd = v.shape[-1]
+    for name, dim in (("K", kd), ("V", vd)):
+        if dim % 16 or not 16 <= dim <= MAX_DIM:
+            raise ValueError(
+                f"wkv kernel takes {name} a multiple of 16 up to {MAX_DIM}, got {name}={dim}"
+            )
+    check_tensor("r", r, dev, DTYPES, (bsz, l, h, kd))
+    check_tensor("k", k, dev, r.dtype, (bsz, l, h, kd))
+    check_tensor("v", v, dev, r.dtype, (bsz, l, h, vd))
+    check_tensor("w", w, dev, (torch.float32, r.dtype), (bsz, l, h, kd))
+    check_tensor("u", u, dev, torch.float32, (h, kd))
+    if any(t.requires_grad for t in (r, k, v, w, u)) and torch.is_grad_enabled():
+        raise RuntimeError("wkv has no backward kernel yet; run under torch.inference_mode()")
+
+    y = torch.empty_like(v)
+    state = torch.empty((bsz, h, kd, vd), dtype=torch.float32, device=dev)
+    if bsz * h == 0:
+        return y, state
+    if l == 0:
+        return y, state.zero_()
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.wkv_launch(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+            y.data_ptr(), state.data_ptr(), bsz, l, h, kd, vd,
+            int(r.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"wkv kernel launch failed with CUDA error {err}")
+    wkv.launches += 1
+    return y, state
+
+
+def wkv(
+    r: Tensor,  # (B, L, H, K)
+    k: Tensor,  # (B, L, H, K)
+    v: Tensor,  # (B, L, H, V)
+    w: Tensor,  # (B, L, H, K) decay in (0, 1)
+    u: Tensor,  # (H, K) bonus, fp32
+) -> tuple[Tensor, Tensor]:
+    """RWKV6 WKV core: returns (y (B,L,H,V) in r's dtype, final_state
+    (B,H,K,V) in fp32).
+
+    On CUDA tensors this launches the kernel (``wkv.launches`` rises by one);
+    it reads r/k/v in their dtype (fp32 or bf16) and w in fp32 or r's dtype.
+    On CPU tensors it runs :func:`ref.wkv_chunked` with the same chunk; a
+    ragged last chunk is shorter, which gives what the JAX wrapper's chunk
+    ``min(64, L)`` and identity padding (w = 1, k = 0) give.  The chunked
+    form is exact for any chunk, so the two differ only in the order of fp32
+    sums.
+    """
+    if r.device.type == "cpu":
+        return wkv_chunked(r, k, v, w, u, chunk=CHUNK)
+    if r.device.type != "cuda":
+        raise ValueError(f"wkv runs on cuda or cpu tensors, not {r.device.type}")
+    return _launch(r, k, v, w, u)
+
+
+wkv.launches = 0

@@ -1,5 +1,6 @@
-"""Per-layer blocks zamba2 runs: GQA attention, the dense MLP and Mamba2
-(the JAX package's ``models/blocks.py``; MoE and RWKV6 are not ported yet).
+"""Per-layer blocks zamba2 and rwkv6 run: GQA attention, the dense MLP,
+Mamba2 and RWKV6 (the JAX package's ``models/blocks.py``; MoE is not ported
+yet).
 
 Every block exposes ``init_*`` / ``*_train`` / ``*_decode``:
 
@@ -18,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.mamba2_ssd.ops import ssd, ssd_decode_step
+from repro_torch.kernels.rwkv6_wkv.ops import wkv, wkv_decode_step
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import (
     apply_rope,
@@ -26,6 +28,7 @@ from repro_torch.models.modules import (
     normal_param,
     rms_norm,
     softcap,
+    uniform_param,
 )
 
 Tensor = torch.Tensor
@@ -252,3 +255,125 @@ def mamba2_decode(p, x_t: Tensor, cache: dict, cfg: ModelConfig) -> tuple[Tensor
     y = y.reshape(b, 1, d_inner).to(x_t.dtype)
     y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["ssm_norm"], cfg.norm_eps)
     return y @ p["ssm_out_proj"], cache
+
+
+# ===========================================================================
+# RWKV6 block (time mix with data-dependent decay + channel mix)
+# ===========================================================================
+def _rwkv_dims(cfg: ModelConfig) -> tuple[int, int]:
+    return cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+
+
+def init_rwkv6(generator, cfg: ModelConfig, dtype) -> dict:
+    d, ff = cfg.d_model, cfg.d_ff
+    nh, hd = _rwkv_dims(cfg)
+    dw = max(d // 16, 32)  # decay-LoRA rank
+    f32 = torch.float32
+
+    def mix() -> Tensor:
+        return uniform_param(generator, (d,)) * 0.5
+
+    return {
+        "tm_mix_r": mix(),
+        "tm_mix_k": mix(),
+        "tm_mix_v": mix(),
+        "tm_mix_w": mix(),
+        "tm_mix_g": mix(),
+        "r_proj": dense_param(generator, d, d, dtype),
+        "k_proj": dense_param(generator, d, d, dtype),
+        "v_proj": dense_param(generator, d, d, dtype),
+        "g_proj": dense_param(generator, d, d, dtype),
+        "o_proj": dense_param(generator, d, d, dtype, scale=d**-0.5 / (2 * cfg.n_layers) ** 0.5),
+        "w_base": torch.full((d,), -4.0, dtype=f32),  # decay bias (w = exp(-exp(.)))
+        "w_lora_a": dense_param(generator, d, dw, f32),
+        "w_lora_b": dense_param(generator, dw, d, f32) * 0.1,
+        "u_bonus": normal_param(generator, (nh, hd), truncated=False) * 0.3,
+        "wkv_norm": torch.ones((d,), dtype=dtype),
+        # channel mix
+        "cm_mix_k": mix(),
+        "cm_mix_r": mix(),
+        "cm_k_proj": dense_param(generator, d, ff, dtype),
+        "cm_v_proj": dense_param(
+            generator, ff, d, dtype, scale=ff**-0.5 / (2 * cfg.n_layers) ** 0.5
+        ),
+        "cm_r_proj": dense_param(generator, d, d, dtype),
+    }
+
+
+def _token_shift(x: Tensor, last: Tensor | None = None) -> Tensor:
+    """x_{t-1} (zeros, or ``last`` (B, d), at t = 0).  x: (B, L, d)."""
+    if last is None:
+        return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    return torch.cat([last[:, None], x[:, :-1]], dim=1)
+
+
+def _rwkv_wkv_inputs(p, x: Tensor, xs: Tensor, cfg: ModelConfig):
+    """r, k, v (x's dtype), the gate g and the decay w (fp32), each
+    (B, L, H, hd) but g (B, L, d)."""
+    nh, hd = _rwkv_dims(cfg)
+
+    def lerp(mu: Tensor) -> Tensor:
+        return x + (xs - x) * mu.to(x.dtype)
+
+    shape = x.shape[:-1] + (nh, hd)
+    r = (lerp(p["tm_mix_r"]) @ p["r_proj"]).reshape(shape)
+    k = (lerp(p["tm_mix_k"]) @ p["k_proj"]).reshape(shape)
+    v = (lerp(p["tm_mix_v"]) @ p["v_proj"]).reshape(shape)
+    g = F.silu((lerp(p["tm_mix_g"]) @ p["g_proj"]).float())
+    xw = lerp(p["tm_mix_w"]).float()
+    w_log = p["w_base"] + torch.tanh(xw @ p["w_lora_a"]) @ p["w_lora_b"]
+    w = torch.exp(-torch.exp(w_log)).reshape(shape)  # data-dependent decay
+    return r, k, v, g, w
+
+
+def rwkv6_time_mix_train(p, x: Tensor, cfg: ModelConfig) -> Tensor:
+    b, l, d = x.shape
+    r, k, v, g, w = _rwkv_wkv_inputs(p, x, _token_shift(x), cfg)
+    y, _ = wkv(r, k, v, w, p["u_bonus"])
+    # the JAX block's norm: one RMSNorm over the whole d, not per head
+    y = rms_norm(y.reshape(b, l, d), p["wkv_norm"], cfg.norm_eps)
+    y = (y.float() * g).to(x.dtype)
+    return y @ p["o_proj"]
+
+
+def rwkv6_channel_mix_train(p, x: Tensor, cfg: ModelConfig, last: Tensor | None = None) -> Tensor:
+    xs = _token_shift(x, last)
+
+    def lerp(mu: Tensor) -> Tensor:
+        return x + (xs - x) * mu.to(x.dtype)
+
+    kk = torch.square(F.relu(lerp(p["cm_mix_k"]) @ p["cm_k_proj"]))
+    rr = torch.sigmoid((lerp(p["cm_mix_r"]) @ p["cm_r_proj"]).float())
+    return (rr * (kk @ p["cm_v_proj"]).float()).to(x.dtype)
+
+
+def init_rwkv_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
+    """The last normed inputs of the two halves (fp32) and the WKV state."""
+    nh, hd = _rwkv_dims(cfg)
+    f32 = torch.float32
+    return {
+        "tm_last": torch.zeros((batch, cfg.d_model), dtype=f32, device=device),
+        "cm_last": torch.zeros((batch, cfg.d_model), dtype=f32, device=device),
+        "wkv": torch.zeros((batch, nh, hd, hd), dtype=f32, device=device),
+    }
+
+
+def rwkv6_time_mix_decode(p, x_t: Tensor, cache: dict, cfg: ModelConfig) -> tuple[Tensor, dict]:
+    """One-token time mix; ``cache["tm_last"]`` and ``cache["wkv"]`` are
+    overwritten in place with this token's normed input and the new state."""
+    b, _, d = x_t.shape
+    xs = cache["tm_last"][:, None].to(x_t.dtype)
+    r, k, v, g, w = _rwkv_wkv_inputs(p, x_t, xs, cfg)
+    y, s_new = wkv_decode_step(r[:, 0], k[:, 0], v[:, 0], w[:, 0], p["u_bonus"], cache["wkv"])
+    y = rms_norm(y.reshape(b, 1, d), p["wkv_norm"], cfg.norm_eps)
+    y = (y.float() * g).to(x_t.dtype)
+    cache["tm_last"].copy_(x_t[:, 0])
+    cache["wkv"].copy_(s_new)
+    return y @ p["o_proj"], cache
+
+
+def rwkv6_channel_mix_decode(p, x_t: Tensor, cache: dict, cfg: ModelConfig) -> tuple[Tensor, dict]:
+    """One-token channel mix; ``cache["cm_last"]`` is overwritten in place."""
+    y = rwkv6_channel_mix_train(p, x_t, cfg, last=cache["cm_last"].to(x_t.dtype))
+    cache["cm_last"].copy_(x_t[:, 0])
+    return y, cache

@@ -1,13 +1,14 @@
-"""Decoder-only causal LM for the hybrid family (zamba2): Mamba2 layers in
-groups, with one weight-shared attention block after every group (the JAX
-package's ``models/lm.py``; the dense, gemma2, moe and ssm families are not
-ported yet).
+"""Decoder-only causal LM for the hybrid family (zamba2: Mamba2 layers in
+groups, with one weight-shared attention block after every group) and the
+ssm family (rwkv6: RWKV6 time mix and channel mix layers), the JAX package's
+``models/lm.py``; the dense, gemma2 and moe families are not ported yet.
 
 The parameters live on the module as a tree whose names are the JAX tree's
 paths, with the JAX tree's leading layer axis unstacked into per-layer
-entries: ``embed``, ``final_norm``, ``layers.<i>.input_norm``,
-``layers.<i>.mamba.ssm_in_proj``, ``shared_attn.attn.q_proj``, ...  Weights
-keep the JAX ``(in, out)`` layout.  The serving path holds them without
+entries: ``embed``, ``final_norm``, ``unembed`` (untied embeddings only),
+``layers.<i>.input_norm``, ``layers.<i>.mamba.ssm_in_proj``,
+``layers.<i>.rwkv.r_proj``, ``shared_attn.attn.q_proj``, ...  Weights keep
+the JAX ``(in, out)`` layout.  The serving path holds them without
 gradients; LM training is a later slice.
 """
 from __future__ import annotations
@@ -96,11 +97,35 @@ def _mamba_layer_decode(lp, x_t: Tensor, cache: dict, cfg: ModelConfig) -> Tenso
     return x_t + y
 
 
+def _init_rwkv_layer(generator, cfg: ModelConfig, dtype) -> dict:
+    return {
+        "rwkv": blocks.init_rwkv6(generator, cfg, dtype),
+        "input_norm": _ones(cfg, dtype),
+        "pre_mlp_norm": _ones(cfg, dtype),
+    }
+
+
+def _rwkv_layer_train(lp, x: Tensor, cfg: ModelConfig) -> Tensor:
+    x = x + blocks.rwkv6_time_mix_train(lp["rwkv"], rms_norm(x, lp["input_norm"], cfg.norm_eps), cfg)
+    return x + blocks.rwkv6_channel_mix_train(
+        lp["rwkv"], rms_norm(x, lp["pre_mlp_norm"], cfg.norm_eps), cfg
+    )
+
+
+def _rwkv_layer_decode(lp, x_t: Tensor, cache: dict, cfg: ModelConfig) -> Tensor:
+    h = rms_norm(x_t, lp["input_norm"], cfg.norm_eps)
+    y, _ = blocks.rwkv6_time_mix_decode(lp["rwkv"], h, cache, cfg)
+    x_t = x_t + y
+    h = rms_norm(x_t, lp["pre_mlp_norm"], cfg.norm_eps)
+    y, _ = blocks.rwkv6_channel_mix_decode(lp["rwkv"], h, cache, cfg)
+    return x_t + y
+
+
 # ---------------------------------------------------------------------------
 # LM
 # ---------------------------------------------------------------------------
 class CausalLM(ParamTree):
-    """The hybrid (zamba2) causal LM.
+    """The causal LM of the hybrid (zamba2) and ssm (rwkv6) families.
 
     ``CausalLM(cfg, device=None)`` allocates the parameters on ``device``
     (``None`` means the card) without drawing them; :meth:`init` draws them
@@ -109,14 +134,18 @@ class CausalLM(ParamTree):
     dtypes with nothing allocated.
     """
 
+    FAMILIES = ("hybrid", "ssm")
+
     def __init__(self, cfg: ModelConfig, *, device: torch.device | str | None = None):
-        if cfg.family != "hybrid":
-            raise ValueError(f"family {cfg.family!r} is not yet ported; the port has 'hybrid'")
+        if cfg.family not in self.FAMILIES:
+            raise ValueError(f"family {cfg.family!r} is not yet ported; the port has {self.FAMILIES}")
         dev = resolve_device(device)
         self.cfg = cfg
         self.dtype = _dtype(cfg.param_dtype)
-        bounds = list(range(0, cfg.n_layers, cfg.shared_attn_every)) + [cfg.n_layers]
-        self.groups = [(bounds[i], bounds[i + 1]) for i in range(len(bounds) - 1)]
+        self.groups = []
+        if cfg.family == "hybrid":
+            bounds = list(range(0, cfg.n_layers, cfg.shared_attn_every)) + [cfg.n_layers]
+            self.groups = [(bounds[i], bounds[i + 1]) for i in range(len(bounds) - 1)]
         with torch.device(dev):
             tree = self._tree(None)
         super().__init__(tree)
@@ -126,12 +155,18 @@ class CausalLM(ParamTree):
         """The parameter tree, drawn from ``generator`` (left undrawn when it
         is None), in the JAX package's layout with the layer axis unstacked."""
         cfg, dtype = self.cfg, self.dtype
-        return {
+        tree = {
             "embed": embed_param(generator, cfg.vocab, cfg.d_model, dtype),
             "final_norm": _ones(cfg, dtype),
-            "layers": [_init_mamba_layer(generator, cfg, dtype) for _ in range(cfg.n_layers)],
-            "shared_attn": _init_dense_layer(generator, cfg, dtype),
         }
+        if not cfg.tied_embeddings:
+            tree["unembed"] = embed_param(generator, cfg.vocab, cfg.d_model, dtype).T.contiguous()
+        if cfg.family == "ssm":
+            tree["layers"] = [_init_rwkv_layer(generator, cfg, dtype) for _ in range(cfg.n_layers)]
+        else:
+            tree["layers"] = [_init_mamba_layer(generator, cfg, dtype) for _ in range(cfg.n_layers)]
+            tree["shared_attn"] = _init_dense_layer(generator, cfg, dtype)
+        return tree
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "CausalLM":
@@ -149,16 +184,26 @@ class CausalLM(ParamTree):
     def device(self) -> torch.device:
         return self.embed.device
 
+    @property
+    def unembed_weight(self) -> Tensor:
+        """The (d, V) unembedding: ``embed.T`` when the embeddings are tied,
+        else the ``unembed`` parameter."""
+        return self.embed.T if self.cfg.tied_embeddings else self.unembed
+
     def apply_hidden(self, tokens: Tensor) -> Tensor:
         """tokens (B, L) -> final hidden states (B, L, d) before the unembed.
-        (The JAX method also returns the MoE auxiliary loss; this family has
-        none.)"""
+        (The JAX method also returns the MoE auxiliary loss; these families
+        have none.)"""
         cfg = self.cfg
         x = self.embed[tokens].to(_dtype(cfg.compute_dtype))
-        for start, end in self.groups:
-            for i in range(start, end):
-                x = _mamba_layer_train(self.layers[i], x, cfg)
-            x = _dense_layer_train(self.shared_attn, x, cfg, None)
+        if cfg.family == "ssm":
+            for layer in self.layers:
+                x = _rwkv_layer_train(layer, x, cfg)
+        else:
+            for start, end in self.groups:
+                for i in range(start, end):
+                    x = _mamba_layer_train(self.layers[i], x, cfg)
+                x = _dense_layer_train(self.shared_attn, x, cfg, None)
         return rms_norm(x, self.final_norm, cfg.norm_eps)
 
     def apply_train(self, tokens: Tensor) -> Tensor:
@@ -167,22 +212,30 @@ class CausalLM(ParamTree):
         return self._unembed(self.apply_hidden(tokens))
 
     def _unembed(self, x: Tensor) -> Tensor:
-        logits = (x @ self.embed.T.to(x.dtype)).float()  # tied embeddings
+        logits = (x @ self.unembed_weight.to(x.dtype)).float()
         return softcap(logits, self.cfg.final_softcap)
 
     # -------------------------- decode --------------------------------
     def init_cache(self, batch: int, max_len: int) -> dict:
-        """Zeroed caches on the model's device: per Mamba layer the conv window
-        and SSM state, and one KV cache per shared-attention site (its inputs
-        differ per site although the weights are tied)."""
+        """Zeroed caches on the model's device, stacked over the layers as
+        in the JAX package.  ssm: per layer the last normed inputs of the
+        time mix and channel mix and the WKV state (``max_len`` is unused).
+        hybrid: per Mamba layer the conv window and SSM state, and one KV
+        cache per shared-attention site (its inputs differ per site although
+        the weights are tied)."""
         cfg, dev = self.cfg, self.device
+
+        def stacked(n: int, one: dict) -> dict:
+            return {k: v.new_zeros((n,) + v.shape) for k, v in one.items()}
+
+        if cfg.family == "ssm":
+            return stacked(cfg.n_layers, blocks.init_rwkv_cache(cfg, batch, device=dev))
         kv_dtype = _dtype(cfg.compute_dtype)
-        mamba = blocks.init_mamba_cache(cfg, batch, device=dev)
-        attn = blocks.init_attn_cache(cfg, batch, max_len, kv_dtype, device=dev)
-        n_sites = len(self.groups)
         return {
-            "mamba": {k: v.new_zeros((cfg.n_layers,) + v.shape) for k, v in mamba.items()},
-            "shared_attn": {k: v.new_zeros((n_sites,) + v.shape) for k, v in attn.items()},
+            "mamba": stacked(cfg.n_layers, blocks.init_mamba_cache(cfg, batch, device=dev)),
+            "shared_attn": stacked(
+                len(self.groups), blocks.init_attn_cache(cfg, batch, max_len, kv_dtype, device=dev)
+            ),
         }
 
     def decode_step(self, cache: dict, tokens_t: Tensor, pos: int) -> tuple[Tensor, dict]:
@@ -192,12 +245,15 @@ class CausalLM(ParamTree):
         of the stacked tensors), and the same dict is returned."""
         cfg = self.cfg
         x = self.embed[tokens_t].to(_dtype(cfg.compute_dtype))
-        mamba, shared = cache["mamba"], cache["shared_attn"]
-        for gi, (start, end) in enumerate(self.groups):
-            for i in range(start, end):
-                layer_cache = {k: v[i] for k, v in mamba.items()}
-                x = _mamba_layer_decode(self.layers[i], x, layer_cache, cfg)
-            site_cache = {k: v[gi] for k, v in shared.items()}
-            x = _dense_layer_decode(self.shared_attn, x, site_cache, pos, cfg, None)
+        if cfg.family == "ssm":
+            for i, layer in enumerate(self.layers):
+                x = _rwkv_layer_decode(layer, x, {k: v[i] for k, v in cache.items()}, cfg)
+        else:
+            for gi, (start, end) in enumerate(self.groups):
+                for i in range(start, end):
+                    layer_cache = {k: v[i] for k, v in cache["mamba"].items()}
+                    x = _mamba_layer_decode(self.layers[i], x, layer_cache, cfg)
+                site_cache = {k: v[gi] for k, v in cache["shared_attn"].items()}
+                x = _dense_layer_decode(self.shared_attn, x, site_cache, pos, cfg, None)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
         return self._unembed(x), cache

@@ -38,6 +38,14 @@ def normal_param(generator: torch.Generator | None, shape, *, truncated: bool) -
     return torch.nn.init.normal_(t, generator=generator)
 
 
+def uniform_param(generator: torch.Generator | None, shape) -> Tensor:
+    """A uniform [0, 1) fp32 draw; undrawn when ``generator`` is None."""
+    t = torch.empty(shape, dtype=torch.float32)
+    if generator is None:
+        return t
+    return torch.nn.init.uniform_(t, generator=generator)
+
+
 def dense_param(generator, in_dim: int, out_dim: int, dtype, scale: float | None = None) -> Tensor:
     """Truncated-normal fan-in init (LM standard), ``(in_dim, out_dim)``."""
     std = scale if scale is not None else in_dim**-0.5
