@@ -9,7 +9,8 @@ Phases, in order (any failure raises and the script exits non-zero):
 1. device: needs a CUDA card; prints its name and power limit; TF32 off;
 2. build: compiles the four CUDA kernels (chargax_step, flash_attention,
    mamba2_ssd, rwkv6_wkv) from the checkout (nvcc, sm_90a, one nvcc each, all started
-   together) into build/, and prints each build's seconds and ptxas' report;
+   together) into build/, and prints each build's seconds and ptxas' report
+   (each entry function, its registers and its spill bytes);
 3. kernel vs plain: the kernel against ``fused_step_ref`` on random slabs,
    B in {1, 300, 16384}, layouts paper_16 / deep_4x4 / kiosk_ac_4, with an
    unlimited feeder cap and one at half of each env's requested power, at
@@ -27,7 +28,9 @@ Phases, in order (any failure raises and the script exits non-zero):
    device's busy ms per step, its idle share of the unprofiled episode of
    phase 4, device kernels per step and the kernels that take most time;
 8. flash kernel vs plain: ``flash_attention`` against ``mha_blocked`` on the
-   same tensors, eight (b, hq, hkv, lq, lk, d) shapes up to the serving one,
+   same tensors, nine (b, hq, hkv, lq, lk, d) shapes up to the serving one
+   (D = 16, 32, 64, 128, 256; bf16 runs the tensor-core kernel, fp32 the
+   CUDA-core one),
    causal and not, windows 64 and 300, soft-cap 50, fp32 within 2e-5 (the
    JAX package's kernel tolerance) and bf16 within one bf16 rounding of the
    output (rtol 2**-7, atol 1e-3);
@@ -48,7 +51,8 @@ Phases, in order (any failure raises and the script exits non-zero):
    after a 16-token prompt at batch 4, then the same decode through
    ``make_serve_step`` timed step by step, its tokens equal to generate's;
 12. kernel time of flash attention and SSD at the serving shapes beside
-   their plain versions, their bounds and (flash) SDPA as a yardstick;
+   their plain versions, their bounds and (flash) SDPA as a yardstick, with
+   flash's achieved TFLOP/s and its time over SDPA's;
 13. profile: one more zamba2 prefill under ``torch.profiler``: device busy
    ms, idle share of the unprofiled prefill, kernels per prefill, top
    kernels; then the zamba2 model is freed;
@@ -125,12 +129,13 @@ NUM_ENVS = 16384
 SERVE_BATCH = 131072
 ZAMBA, RWKV = "zamba2-1.2b", "rwkv6-3b"
 # (b, hq, hkv, lq, lk, d): MHA, GQA, MQA rectangular, unaligned, one decode
-# row over 4097 keys, the smoke config's D = 16, gemma2's D = 256, and
-# zamba2-1.2b's prefill at 4 x 4096 (the shape the main path launches)
+# row over 4097 keys, the smoke config's D = 16, D = 32 with ragged q and kv
+# tiles, gemma2's D = 256, and zamba2-1.2b's prefill at 4 x 4096 (the shape
+# the main path launches)
 FA_SHAPES = [
     (1, 2, 2, 128, 128, 64), (2, 4, 2, 256, 256, 128), (1, 8, 1, 128, 384, 128),
     (1, 2, 2, 130, 200, 64), (1, 4, 4, 1, 4097, 64), (1, 2, 1, 64, 64, 16),
-    (1, 2, 1, 256, 256, 256), (4, 32, 32, 4096, 4096, 64),
+    (1, 4, 2, 96, 160, 32), (1, 2, 1, 256, 256, 256), (4, 32, 32, 4096, 4096, 64),
 ]
 FA_VARIANTS = {
     "causal": dict(causal=True),
@@ -356,7 +361,9 @@ def build_all() -> float:
     for name, (path, log, secs) in results.items():
         print(f"build: {name} -> {path.name} in {secs:.2f} s")
         for line in log.splitlines():
-            if "registers" in line or "error" in line.lower():
+            if any(w in line for w in ("entry function", "registers", "spill")) or (
+                "error" in line.lower()
+            ):
                 print(f"  nvcc: {line.strip()}")
     print(f"build: all kernels in {total_s:.2f} s")
     return total_s
@@ -637,7 +644,9 @@ def lm_kernel_times(dev: torch.device) -> dict[str, dict]:
         f"kernel time flash_attention (B={b}, H={h}, L={l}, D={d}, bf16, causal): "
         f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {sdpa_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms by {bound_by} ({n_bytes} bytes at 3.35 TB/s, {n_ops:.4g} flop at "
-        f"989 TFLOP/s bf16), achieved {bound_ms / kernel_ms:.4f} of bound"
+        f"989 TFLOP/s bf16), achieved {bound_ms / kernel_ms:.4f} of bound, "
+        f"{n_ops / kernel_ms / 1e9:.1f} TFLOP/s (SDPA {n_ops / sdpa_ms / 1e9:.1f}), "
+        f"{kernel_ms / sdpa_ms:.3f} x SDPA's time"
     )
 
     shape = (b, l, 2 * cfg.d_model // cfg.ssm_head_dim, cfg.ssm_head_dim, cfg.ssm_state)

@@ -1,6 +1,10 @@
 """Build, binding and dispatch of flash attention.
 
-The CUDA kernel (``csrc/flash_attention.cu``) is compiled with ``nvcc`` for
+Two routes in ``csrc/flash_attention.cu``, chosen by dtype: bf16 runs on the
+tensor cores (``wgmma`` on TMA-fed K/V tiles, P kept in registers); fp32 runs
+on the CUDA cores, since a tensor-core product of fp32 inputs is TF32.
+
+The CUDA source is compiled with ``nvcc`` for
 ``sm_90a`` into ``build/flash_attention/`` at first use
 (:mod:`repro_torch.kernels._build`) and loaded with ``ctypes``.  A CUDA tensor
 launches it; a CPU tensor runs the plain version
@@ -36,9 +40,8 @@ def build_kernel() -> tuple[Path, str]:
     return build(SOURCE, "flash_attention")
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    path, _ = build_kernel()
+def bind(path: Path) -> ctypes.CDLL:
+    """Load a built library and declare ``flash_attention_launch``'s C types."""
     lib = ctypes.CDLL(str(path))
     fn = lib.flash_attention_launch
     fn.argtypes = (
@@ -48,6 +51,12 @@ def _library() -> ctypes.CDLL:
     )
     fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    path, _ = build_kernel()
+    return bind(path)
 
 
 def _launch(
@@ -77,6 +86,8 @@ def _launch(
     check_tensor("q", q, dev, DTYPES, (b, hq, lq, d))
     check_tensor("k", k, dev, q.dtype, (b, hkv, lk, d))
     check_tensor("v", v, dev, q.dtype, (b, hkv, lk, d))
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("bf16 q, k and v must start on 16-byte boundaries (TMA copies)")
     if any(t.requires_grad for t in (q, k, v)) and torch.is_grad_enabled():
         raise RuntimeError(
             "flash_attention has no backward kernel yet; run under torch.inference_mode()"
