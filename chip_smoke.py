@@ -10,7 +10,8 @@ Phases, in order (any failure raises and the script exits non-zero):
 2. build: compiles the four CUDA kernels (chargax_step, flash_attention,
    mamba2_ssd, rwkv6_wkv) from the checkout (nvcc, sm_90a, one nvcc each, all started
    together) into build/, and prints each build's seconds and ptxas' report
-   (each entry function, its registers and its spill bytes);
+   (each entry function, its registers and its spill bytes); a WKV instance
+   that spills fails;
 3. kernel vs plain: the kernel against ``fused_step_ref`` on random slabs,
    B in {1, 300, 16384}, layouts paper_16 / deep_4x4 / kiosk_ac_4, with an
    unlimited feeder cap and one at half of each env's requested power, at
@@ -68,7 +69,10 @@ Phases, in order (any failure raises and the script exits non-zero):
 16. serving rwkv6-3b at full width and depth (32 layers, bf16, seed 0), as
    phase 11: exactly 32 ``rwkv6_wkv`` launches per prefill and no other;
 17. kernel time of the wkv kernel at the serving shape beside its plain
-   version and its bound (no PyTorch call computes it);
+   version and its bound (no PyTorch call computes it); the blocks one SM
+   holds (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the waves
+   its grid takes there (one, or it fails), and the count of tensor-core
+   instructions (HMMA, HGMMA) in the built library's SASS (none fails);
 18. profile: one rwkv6-3b prefill and 8 decode steps at batch 4 under
    ``torch.profiler``: device busy ms per call, idle share, kernels, top
    kernels.
@@ -85,6 +89,7 @@ import functools
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -102,6 +107,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs.registry import build_model, get_config  # noqa: E402
 from repro_torch.core import ChargaxEnv, EnvConfig, sampling  # noqa: E402
 from repro_torch.distributed.train_step import make_prefill_step, make_serve_step  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.chargax_step import ops  # noqa: E402
 from repro_torch.kernels.chargax_step.ref import BIG, PoleSlabs, fused_step_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -339,8 +345,9 @@ def profile_episode(env: ChargaxEnv, policy, net, gen, episode_s: float) -> dict
     return summary
 
 
-def build_all() -> float:
-    """Phase 2: one nvcc per kernel source, all started together."""
+def build_all() -> tuple[float, dict[str, Path]]:
+    """Phase 2: one nvcc per kernel source, all started together.  Returns the
+    seconds it took and each library's path; fails if a WKV instance spills."""
     builders = {
         "chargax_step": ops.build_kernel,
         "flash_attention": fa_ops.build_kernel,
@@ -366,7 +373,21 @@ def build_all() -> float:
             ):
                 print(f"  nvcc: {line.strip()}")
     print(f"build: all kernels in {total_s:.2f} s")
-    return total_s
+    wkv_log = results["rwkv6_wkv"][1]
+    spills = [line for line in wkv_log.splitlines() if "spill" in line]
+    check(
+        all(re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line) for line in spills),
+        f"rwkv6_wkv spills registers: {spills}",
+    )
+    return total_s, {name: path for name, (path, _, _) in results.items()}
+
+
+def sass_count(lib: Path, opcode: str) -> int:
+    """Instructions of ``opcode`` in a built library's SASS (``cuobjdump``)."""
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    return len(re.findall(rf"\b{opcode}\b", sass))
 
 
 def _randn(shape, gen, dev, dtype) -> torch.Tensor:
@@ -774,13 +795,25 @@ def wkv_bound(b: int, l: int, h: int, kd: int, vd: int, elem_bytes: int, w_bytes
     return _bound(n_bytes, n_ops)
 
 
-def wkv_kernel_time(dev: torch.device) -> dict:
+def wkv_kernel_time(dev: torch.device, lib: Path) -> dict:
     """Phase 17: the WKV kernel at rwkv6-3b's serving shape (r/k/v bf16, w
     fp32, as the model gives them), inputs rotated over two copies (each
-    larger than the 50 MB L2)."""
+    larger than the 50 MB L2); the blocks one SM holds and the waves the
+    grid takes; the tensor-core instructions in the built library."""
     cfg = get_config(RWKV)
     h = cfg.d_model // cfg.rwkv_head_dim
     shape = (PREFILL_B, PREFILL_L, h, cfg.rwkv_head_dim, cfg.rwkv_head_dim)
+    per_sm = wkv_ops.blocks_per_sm(cfg.rwkv_head_dim, torch.bfloat16, torch.float32)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = PREFILL_B * h * math.ceil(cfg.rwkv_head_dim / 64)
+    waves = math.ceil(blocks / (per_sm * sms))
+    hmma, hgmma = sass_count(lib, "HMMA"), sass_count(lib, "HGMMA")
+    print(
+        f"rwkv6_wkv occupancy: {per_sm} blocks per SM x {sms} SMs for {blocks} blocks = {waves} "
+        f"wave(s); SASS: {hmma} HMMA, {hgmma} HGMMA"
+    )
+    check(waves == 1, f"rwkv6_wkv takes {waves} waves at the serving shape")
+    check(hmma + hgmma > 0, "rwkv6_wkv's library has no tensor-core instruction")
     gen = torch.Generator(device=dev).manual_seed(17)
     args = [wkv_inputs(shape, torch.bfloat16, gen, dev) for _ in range(2)]
     with torch.inference_mode():
@@ -821,7 +854,7 @@ def main() -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
 
     # --- 2. build -----------------------------------------------------------------
-    build_s = build_all()
+    build_s, libs = build_all()
 
     # --- 3. kernel vs plain -------------------------------------------------------
     max_err, (slabs, pp, dt) = kernel_vs_plain(dev)
@@ -947,7 +980,7 @@ def main() -> int:
     rwkv_metrics, rwkv_launches, model, prefill, batch = serve_lm(dev, RWKV, rwkv_counts)
 
     # --- 17. wkv kernel time ------------------------------------------------------
-    wkv_times = wkv_kernel_time(dev)
+    wkv_times = wkv_kernel_time(dev, libs["rwkv6_wkv"])
 
     # --- 18. profile of one rwkv6-3b prefill and of decode steps -------------------
     prefill_profile = profile_device(lambda: prefill(batch), 1, rwkv_metrics["prefill_ms"])

@@ -1,27 +1,30 @@
 #!/usr/bin/env python3
-"""Hold versions of the flash-attention CUDA source against each other on one card.
+"""Hold versions of a CUDA kernel source against each other on one card.
 
-    python3 compare_flash.py NAME=PATH [NAME=PATH ...]
+    python3 compare_flash.py [--kernel flash|wkv] NAME=PATH [NAME=PATH ...]
 
-Each PATH is a version of ``src/repro_torch/kernels/flash_attention/csrc/
-flash_attention.cu``; ``tree`` names the checkout's own (an older one can be
-written out with ``git show REV:PATH > build/old.cu``).  Each version is
-built with the repository's nvcc flags into ``build/flash_compare_NAME/``,
-and printed with ptxas' registers and spill bytes per kernel and the count
-of tensor-core instructions in its SASS (HMMA: ``mma.sync``; HGMMA:
-``wgmma``).  Then each runs ``chip_smoke.py``'s phase-8 sweep against
-``mha_blocked`` (every shape, variant and dtype, reported as the largest
-error over ``FA_TOL``; above 1 fails) and phase 12's timing at zamba2-1.2b's
-serving shape (B=4, H=32, L=4096, D=64, bf16, causal), in turns with SDPA,
-for two rounds.  It picks between designs; ``chip_smoke.py`` stays the check.
-Needs a CUDA card and ``nvcc``.
+``--kernel flash`` (the default) takes versions of
+``src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu``,
+``--kernel wkv`` versions of ``src/repro_torch/kernels/rwkv6_wkv/csrc/wkv.cu``.
+``tree`` names the checkout's own source (an older one can be written out
+with ``git show REV:PATH > build/old.cu``).  Each version is built with the
+repository's nvcc flags into ``build/<kernel>_compare_NAME/``, and printed
+with ptxas' registers and spill bytes per kernel instance and the count of
+tensor-core instructions in its SASS (HMMA: ``mma.sync``; HGMMA: ``wgmma``).
+Then each runs ``chip_smoke.py``'s sweep against the plain version (phase 8
+for flash, against ``mha_blocked``; phase 14 for wkv, against
+``wkv_chunked``), reported as the largest error over the tolerance (above 1
+fails), and its timing at the serving shape (flash: zamba2-1.2b's B=4, H=32,
+L=4096, D=64, bf16, causal, in turns with SDPA; wkv: rwkv6-3b's B=4,
+L=4096, H=40, K=V=64, r/k/v bf16, w fp32, with the blocks one SM holds
+where the version reports them), for two rounds.  It picks between designs;
+``chip_smoke.py`` stays the check.  Needs a CUDA card and ``nvcc``.
 """
 from __future__ import annotations
 
-import ctypes
+import argparse
 import functools
 import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -36,29 +39,45 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import mha_blocked  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv.ref import wkv_chunked  # noqa: E402
+
+OPS = {"flash": fa_ops, "wkv": wkv_ops}
 
 
-def build_version(name: str, path: str) -> ctypes.CDLL:
-    source = fa_ops.SOURCE if path == "tree" else (ROOT / path).resolve()
-    lib_path, log = _build.build(source, f"flash_compare_{name}")
+def _instance(kernel: str, mangled: str) -> str:
+    """A short name of a kernel instance from its mangled name."""
+    if kernel == "flash":
+        route = "bf16" if "bf16" in mangled else "fp32"
+        return f"{route} D={re.search(r'ILi(\d+)E', mangled).group(1)}"
+    args = mangled.split("wkv_kernelI", 1)[-1].split("Li", 1)[0]
+    dtype = "bf16" if args.startswith("13__nv_bfloat16") else "fp32"
+    w_dtype = "fp32" if args.endswith("f") else "bf16"
+    return f"{dtype} w {w_dtype} K={re.search(r'Li(\d+)E', mangled).group(1)}"
+
+
+def build_version(kernel: str, name: str, path: str):
+    ops = OPS[kernel]
+    source = ops.SOURCE if path == "tree" else (ROOT / path).resolve()
+    lib_path, log = _build.build(source, f"{kernel}_compare_{name}")
     print(f"{name}: {path} -> {lib_path.name}")
-    kernel = None
+    mangled = None
     for line in log.splitlines():
         if "entry function" in line:
-            kernel = re.search(r"'(.*?)'", line).group(1)
-        elif kernel and ("registers" in line or "spill" in line):
-            route = "bf16" if "bf16" in kernel else "fp32"
-            d = re.search(r"ILi(\d+)E", kernel).group(1)
-            print(f"  {route} D={d}: {line.split(':', 1)[-1].strip()}")
-    sass = subprocess.run(
-        [str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass", str(lib_path)],
-        capture_output=True, text=True, check=True,
-    ).stdout
-    print(f"  SASS: HMMA {sass.count('HMMA')}, HGMMA {sass.count('HGMMA')}")
-    return fa_ops.bind(lib_path)
+            mangled = re.search(r"'(.*?)'", line).group(1)
+        elif mangled and ("registers" in line or "spill" in line):
+            print(f"  {_instance(kernel, mangled)}: {line.split(':', 1)[-1].strip()}")
+    print(f"  SASS: HMMA {cs.sass_count(lib_path, 'HMMA')}, HGMMA {cs.sass_count(lib_path, 'HGMMA')}")
+    return ops.bind(lib_path)
 
 
-def sweep(dev: torch.device) -> dict[str, float]:
+def _ratio(got: torch.Tensor, want: torch.Tensor, tol: dict) -> float:
+    if not bool(torch.isfinite(got).all()):
+        return float("inf")
+    return float(((got - want).abs() / (tol["atol"] + tol["rtol"] * want.abs())).max())
+
+
+def flash_sweep(dev: torch.device) -> dict[str, float]:
     """Largest error over FA_TOL per dtype on phase 8's cases; above 1 fails."""
     gen = torch.Generator(device=dev).manual_seed(8)
     worst: dict[str, float] = {}
@@ -71,10 +90,7 @@ def sweep(dev: torch.device) -> dict[str, float]:
                 with torch.inference_mode():
                     got = fa_ops.flash_attention(q, k, v, **kw).float()
                 want = mha_blocked(q, k, v, **kw).float()
-                tol = cs.FA_TOL[dtype]
-                ratio = float(((got - want).abs() / (tol["atol"] + tol["rtol"] * want.abs())).max())
-                if not bool(torch.isfinite(got).all()):
-                    ratio = float("inf")
+                ratio = _ratio(got, want, cs.FA_TOL[dtype])
                 if ratio > 1:
                     print(f"  FAIL {(b, hq, hkv, lq, lk, d)} {dtype} {name}: {ratio:.3f} of FA_TOL")
                 key = str(dtype)[6:]
@@ -82,21 +98,32 @@ def sweep(dev: torch.device) -> dict[str, float]:
     return worst
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("compare_flash: no CUDA device is available", file=sys.stderr)
-        return 1
-    versions = dict(arg.split("=", 1) for arg in sys.argv[1:])
-    if not versions:
-        print(__doc__, file=sys.stderr)
-        return 2
-    print(f"device: {cs.nvidia_smi_line()}")
-    libs = {name: build_version(name, path) for name, path in versions.items()}
-    dev = torch.device("cuda", torch.cuda.current_device())
-    for name, lib in libs.items():
-        fa_ops._library = lambda lib=lib: lib
-        print(f"sweep {name}: largest error over FA_TOL {sweep(dev)}")
+def wkv_sweep(dev: torch.device) -> dict[str, float]:
+    """Largest error over WKV_TOL per dtype and output on phase 14's cases;
+    above 1 fails."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    worst: dict[str, float] = {}
+    for shape in cs.WKV_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for w_dtype in sorted({torch.float32, dtype}, key=str):
+                for strong in (False, True):
+                    args = cs.wkv_inputs(shape, dtype, gen, dev, w_dtype, strong)
+                    with torch.inference_mode():
+                        y, s = wkv_ops.wkv(*args)
+                    y_want, s_want = wkv_chunked(*args)
+                    for out, ratio in (
+                        ("y", _ratio(y.float(), y_want.float(), cs.WKV_TOL[dtype])),
+                        ("state", _ratio(s, s_want, cs.WKV_TOL[torch.float32])),
+                    ):
+                        label = f"{shape} {str(dtype)[6:]} w {str(w_dtype)[6:]}{' strong' if strong else ''}"
+                        if ratio > 1:
+                            print(f"  FAIL {label} {out}: {ratio:.3f} of WKV_TOL")
+                        key = f"{str(dtype)[6:]} {out}"
+                        worst[key] = max(worst.get(key, 0.0), ratio)
+    return worst
 
+
+def time_flash(dev: torch.device, libs: dict) -> None:
     b, h, l, d = cs.PREFILL_B, 32, cs.PREFILL_L, 64
     gen = torch.Generator(device=dev).manual_seed(12)
     bf16 = torch.bfloat16
@@ -112,6 +139,44 @@ def main() -> int:
             sdpa = functools.partial(F.scaled_dot_product_attention, is_causal=True)
             ms = cs.time_ms(sdpa, qkv)
             print(f"round {rnd} SDPA: {ms:.4f} ms, {n_ops / ms / 1e9:.1f} TFLOP/s")
+
+
+def time_wkv(dev: torch.device, libs: dict) -> None:
+    shape = (cs.PREFILL_B, cs.PREFILL_L, 40, 64, 64)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    args = [cs.wkv_inputs(shape, torch.bfloat16, gen, dev) for _ in range(2)]
+    bound_ms = cs.wkv_bound(*shape, 2, 4)[0]
+    for name, lib in libs.items():
+        if hasattr(lib, "wkv_occupancy"):
+            wkv_ops._library = lambda lib=lib: lib
+            per_sm = wkv_ops.blocks_per_sm(64, torch.bfloat16, torch.float32)
+            print(f"{name}: {per_sm} blocks per SM at the serving shape")
+    with torch.inference_mode():
+        for rnd in range(2):
+            for name, lib in libs.items():
+                wkv_ops._library = lambda lib=lib: lib
+                ms = cs.time_ms(wkv_ops.wkv, args)
+                print(f"round {rnd} {name}: {ms:.4f} ms, {bound_ms / ms:.4f} of bound")
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--kernel", choices=sorted(OPS), default="flash")
+    parser.add_argument("versions", nargs="+", metavar="NAME=PATH")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("compare_flash: no CUDA device is available", file=sys.stderr)
+        return 1
+    versions = dict(arg.split("=", 1) for arg in args.versions)
+    print(f"device: {cs.nvidia_smi_line()}")
+    libs = {name: build_version(args.kernel, name, path) for name, path in versions.items()}
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ops = OPS[args.kernel]
+    sweep, time_all = (flash_sweep, time_flash) if args.kernel == "flash" else (wkv_sweep, time_wkv)
+    for name, lib in libs.items():
+        ops._library = lambda lib=lib: lib
+        print(f"sweep {name}: largest error over the tolerance {sweep(dev)}", flush=True)
+    time_all(dev, libs)
     return 0
 
 

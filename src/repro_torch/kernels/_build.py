@@ -34,8 +34,9 @@ def build(source: Path, name: str) -> tuple[Path, str]:
     """Compile ``source`` into ``build/<name>/lib<name>_<hash>.so`` unless that
     build exists.
 
-    Returns the library's path and nvcc's output (register and shared-memory
-    use from ``-Xptxas -v``; empty when the library was already built).  The
+    Returns the library's path and nvcc's output (register, spill and
+    shared-memory use from ``-Xptxas -v``), kept beside the library in
+    ``<library>.log`` so that a later call finds it too.  The
     file name carries a hash of the source and flags, so an edited source is
     rebuilt, and the library is written under a temporary name and renamed,
     so a process never loads a file another is still writing.  Builds of
@@ -44,8 +45,9 @@ def build(source: Path, name: str) -> tuple[Path, str]:
     digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
     out_dir = BUILD_ROOT / name
     lib = out_dir / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    log = lib.with_suffix(".log")
     if lib.exists():
-        return lib, ""
+        return lib, log.read_text() if log.exists() else ""
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
@@ -54,6 +56,7 @@ def build(source: Path, name: str) -> tuple[Path, str]:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
         )
+    log.write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return lib, proc.stdout + proc.stderr
 

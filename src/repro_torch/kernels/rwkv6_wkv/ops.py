@@ -2,9 +2,12 @@
 
 The CUDA kernel (``csrc/wkv.cu``) is compiled with ``nvcc`` for ``sm_90a``
 into ``build/rwkv6_wkv/`` at first use (:mod:`repro_torch.kernels._build`)
-and loaded with ``ctypes``.  A CUDA tensor launches it; a CPU tensor runs the
-plain version (:func:`repro_torch.kernels.rwkv6_wkv.ref.wkv_chunked`).  There
-is no fallback between the two: a CUDA tensor launches the kernel or raises.
+and loaded with ``ctypes``.  It runs its four products on the tensor cores
+(``mma.sync`` bf16 with each fp32 operand split into a bf16 high part and a
+bf16 remainder) for fp32 and bf16 inputs alike.  A CUDA tensor launches it;
+a CPU tensor runs the plain version
+(:func:`repro_torch.kernels.rwkv6_wkv.ref.wkv_chunked`).  There is no
+fallback between the two: a CUDA tensor launches the kernel or raises.
 
 The kernel has no backward: the serving path runs under
 ``torch.inference_mode()``, and a CUDA input that requires grad raises.
@@ -24,7 +27,7 @@ from repro_torch.kernels.rwkv6_wkv.ref import wkv_chunked, wkv_decode_step
 
 Tensor = torch.Tensor
 
-__all__ = ["wkv", "wkv_decode_step", "build_kernel"]
+__all__ = ["wkv", "wkv_decode_step", "build_kernel", "blocks_per_sm"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv.cu"
 DTYPES = (torch.float32, torch.bfloat16)
@@ -37,14 +40,34 @@ def build_kernel() -> tuple[Path, str]:
     return build(SOURCE, "rwkv6_wkv")
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    path, _ = build_kernel()
+def bind(path: Path) -> ctypes.CDLL:
+    """Load a built library and declare ``wkv_launch``'s C types."""
     lib = ctypes.CDLL(str(path))
     fn = lib.wkv_launch
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    path, _ = build_kernel()
+    return bind(path)
+
+
+def blocks_per_sm(kd: int, dtype: torch.dtype, w_dtype: torch.dtype) -> int:
+    """Blocks of the kernel for K = ``kd`` and these dtypes that one SM holds
+    at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs a card."""
+    fn = _library().wkv_occupancy
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    err = fn(
+        kd, int(dtype == torch.bfloat16), int(w_dtype == torch.bfloat16), ctypes.byref(blocks)
+    )
+    if err != 0:
+        raise RuntimeError(f"wkv occupancy query failed with CUDA error {err}")
+    return blocks.value
 
 
 def _launch(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor) -> tuple[Tensor, Tensor]:
@@ -72,6 +95,8 @@ def _launch(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor) -> tuple[Tens
         return y, state
     if l == 0:
         return y, state.zero_()
+    # the kernel copies 16-byte pieces; a view that starts off that alignment is copied
+    r, k, v, w = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (r, k, v, w))
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -13,20 +13,25 @@ The CUDA kernel cannot run here: its case is marked ``cuda`` and skips
 without a card.  There its bf16 ``y`` may differ from the plain version's by
 one bf16 rounding of the output (``rtol`` 2**-7) on top of fp32 noise; the
 fp32 final state is held to 3e-4 in both dtypes.
+
+The kernel's arithmetic is emulated here in plain PyTorch
+(``_emulate_kernel``): 16-row sub-chunks, the off-diagonal score blocks
+factored through the log decay of the key sub-chunk's last row, and every
+tensor-core product's fp32 operands split into a bf16 high part and a bf16
+remainder.  That emulation is held to ``wkv_chunked`` at the kernel's own
+tolerances, and one bf16 rounding of the score operands is shown to exceed
+them.
 """
 from __future__ import annotations
 
 import functools
+import math
 import re
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.kernels.rwkv6_wkv import ref as jax_ref
-from repro.kernels.rwkv6_wkv.ops import wkv as jax_wkv
 from repro_torch.kernels.rwkv6_wkv import ops, ref
 
 TOL = dict(rtol=3e-4, atol=3e-4)
@@ -52,11 +57,27 @@ def _torch(*arrays):
 
 
 @functools.cache
+def _jax():
+    """jax, jax.numpy and the JAX package's WKV modules, imported when a test
+    needs them: the CUDA cases also run where JAX is not installed."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.rwkv6_wkv import ops as jax_ops
+    from repro.kernels.rwkv6_wkv import ref as jax_ref
+
+    return jax, jnp, jax_ops, jax_ref
+
+
+@functools.cache
 def _jax_wkv(chunk: int):
-    return jax.jit(functools.partial(jax_wkv, chunk=chunk, impl="interpret"))
+    jax, _, jax_ops, _ = _jax()
+    return jax.jit(functools.partial(jax_ops.wkv, chunk=chunk, impl="interpret"))
 
 
-_jax_scan = jax.jit(jax_ref.wkv_scan_ref)
+@functools.cache
+def _jax_scan():
+    jax, _, _, jax_ref = _jax()
+    return jax.jit(jax_ref.wkv_scan_ref)
 
 
 @pytest.mark.parametrize(
@@ -79,6 +100,7 @@ def test_wkv_matches_jax_interpret_kernel(b, l, h, kd, vd):
 
 @pytest.mark.parametrize("b,l,h,kd,vd", [(1, 128, 2, 64, 64), (2, 96, 2, 32, 64)])
 def test_bf16_wkv_matches_jax_interpret_kernel(b, l, h, kd, vd):
+    _, jnp, _, _ = _jax()
     *rkvw, u = _inputs(7, b, l, h, kd, vd)
     inputs = [jnp.asarray(t, jnp.bfloat16) for t in rkvw]
     y_want, s_want = _jax_wkv(ops.CHUNK)(*inputs, u)
@@ -92,7 +114,7 @@ def test_bf16_wkv_matches_jax_interpret_kernel(b, l, h, kd, vd):
 @pytest.mark.parametrize("b,l,h,kd,vd,chunk", [(1, 64, 2, 32, 32, 16), (2, 50, 3, 16, 48, 24)])
 def test_scan_reference_matches_jax(b, l, h, kd, vd, chunk):
     inputs = _inputs(11, b, l, h, kd, vd)
-    y_want, s_want = _jax_scan(*inputs)
+    y_want, s_want = _jax_scan()(*inputs)
     y, s = ref.wkv_scan_ref(*_torch(*inputs))
     np.testing.assert_allclose(y.numpy(), np.asarray(y_want), **SCAN_TOL)
     np.testing.assert_allclose(s.numpy(), np.asarray(s_want), **SCAN_TOL)
@@ -107,7 +129,7 @@ def test_strong_decay_is_stable():
     must not overflow the chunked form."""
     r, k, v, w, u = _inputs(3, 1, 64, 1, 32, 32)
     w = np.full_like(w, 1e-12)
-    y_want, _ = _jax_scan(r, k, v, w, u)
+    y_want, _ = _jax_scan()(r, k, v, w, u)
     y, s = ops.wkv(*_torch(r, k, v, w, u))
     assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
     np.testing.assert_allclose(y.numpy(), np.asarray(y_want), rtol=1e-4, atol=1e-4)
@@ -121,7 +143,7 @@ def test_state_carries_across_segments_as_in_jax():
     y1, s1 = ref.wkv_chunked(*first, chunk=32)
     second = _torch(r[:, 64:], k[:, 64:], v[:, 64:], w[:, 64:], u)
     y2, s2 = ref.wkv_chunked(*second, chunk=32, s0=s1)
-    y_want, s_want = jax_ref.wkv_chunked_jnp(r, k, v, w, u, chunk=32)
+    y_want, s_want = _jax()[3].wkv_chunked_jnp(r, k, v, w, u, chunk=32)
     np.testing.assert_allclose(torch.cat([y1, y2], dim=1).numpy(), np.asarray(y_want), **SCAN_TOL)
     np.testing.assert_allclose(s2.numpy(), np.asarray(s_want), **SCAN_TOL)
 
@@ -130,7 +152,7 @@ def test_decode_step_matches_jax():
     b, h, kd, vd = 2, 3, 32, 16
     r, k, v, w, u = _inputs(5, b, 1, h, kd, vd)
     s = np.random.default_rng(5).standard_normal((b, h, kd, vd)).astype(np.float32)
-    y_want, s_want = jax_ref.wkv_decode_step(r[:, 0], k[:, 0], v[:, 0], w[:, 0], u, s)
+    y_want, s_want = _jax()[3].wkv_decode_step(r[:, 0], k[:, 0], v[:, 0], w[:, 0], u, s)
     y, s_new = ops.wkv_decode_step(*_torch(r[:, 0], k[:, 0], v[:, 0], w[:, 0], u, s))
     np.testing.assert_allclose(y.numpy(), np.asarray(y_want), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(s_new.numpy(), np.asarray(s_want), rtol=1e-5, atol=1e-5)
@@ -188,6 +210,135 @@ def test_kernel_wrapper_refuses_grad_and_other_devices():
         ops.wkv(*meta.values())
 
 
+
+SUB = 16  # rows of a sub-chunk, ``kSub`` in csrc/wkv.cu
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.bfloat16().float()
+
+
+def _product(eq: str, a: torch.Tensor, b: torch.Tensor, once: bool) -> torch.Tensor:
+    """One tensor-core product of fp32 operands as the kernel forms it: each
+    operand split into a bf16 high part and a bf16 remainder, summed in fp32
+    as hi*hi + hi*lo + lo*hi; or, with ``once``, each rounded to bf16 once.
+    An operand exact in bf16 has a zero remainder."""
+    if once:
+        return torch.einsum(eq, _bf16(a), _bf16(b))
+    ah, bh = _bf16(a), _bf16(b)
+    al, bl = _bf16(a - ah), _bf16(b - bh)
+    return torch.einsum(eq, ah, bh) + torch.einsum(eq, ah, bl) + torch.einsum(eq, al, bh)
+
+
+def _emulate_kernel(r, k, v, w, u, once=()):
+    """The kernel's arithmetic in plain PyTorch.  Chunks of 64 rows padded
+    with the identity (r = k = v = 0, w = 1); log decays in base 2; in each
+    chunk the score block of query sub-chunk a and key sub-chunk b < a is
+    (r * exp2(cs - n_b)) (k * exp2(n_b - cw))^T with n_b = cw at b's last
+    row, and the diagonal blocks take one exp2 per term with the bonus
+    r u k on their diagonal.  ``once`` names the products ("score",
+    "score_v", "inter", "state") whose operands are rounded to bf16 once
+    instead of split.  Returns y in r's dtype, the final fp32 state and the
+    largest exponent any exp2 of the factored score took."""
+    bsz, l, h, kd = r.shape
+    vd = v.shape[-1]
+    q = ops.CHUNK
+    pad = (0, 0, 0, 0, 0, (-l) % q)
+    rf, kf, vf = (torch.nn.functional.pad(t.float(), pad) for t in (r, k, v))
+    wf = torch.nn.functional.pad(w.float(), pad, value=1.0)
+    s = torch.zeros((bsz, h, kd, vd))
+    below = torch.tril(torch.ones(SUB, SUB, dtype=torch.bool), -1)[None, :, :, None, None]
+    diag = torch.eye(SUB, dtype=torch.bool)[None, :, :, None, None]
+    ys, max_exp = [], -math.inf
+    for c0 in range(0, rf.shape[1], q):
+        rc, kc, vc = (t[:, c0 : c0 + q] for t in (rf, kf, vf))
+        cw = torch.cumsum(torch.log2(torch.clamp(wf[:, c0 : c0 + q], 1e-20, 1.0)), 1)
+        cs = torch.cat([torch.zeros_like(cw[:, :1]), cw[:, :-1]], 1)  # cw of the row before
+        total = cw[:, -1]
+        score = torch.zeros((bsz, h, q, q))
+        for a in range(q // SUB):
+            ia = slice(a * SUB, (a + 1) * SUB)
+            d = cs[:, ia, None] - cw[:, None, ia]
+            e = torch.where(below, torch.exp2(torch.clamp(d, max=0.0)), 0.0)
+            e = torch.where(diag, u.float()[None, None, None], e)
+            score[:, :, ia, ia] = torch.einsum("bihk,bjhk,bijhk->bhij", rc[:, ia], kc[:, ia], e)
+            for b in range(a):
+                ib = slice(b * SUB, (b + 1) * SUB)
+                n_b = cw[:, (b + 1) * SUB - 1, None]
+                e_r, e_k = cs[:, ia] - n_b, n_b - cw[:, ib]
+                max_exp = max(max_exp, float(e_r.max()), float(e_k.max()))
+                score[:, :, ia, ib] = _product(
+                    "bihk,bjhk->bhij", rc[:, ia] * torch.exp2(e_r), kc[:, ib] * torch.exp2(e_k),
+                    "score" in once,
+                )
+        y = _product("bhij,bjhv->bihv", score, vc, "score_v" in once)
+        y = y + _product("bihk,bhkv->bihv", rc * torch.exp2(cs), s, "inter" in once)
+        kdec = kc * torch.exp2(total[:, None] - cw)
+        s = torch.exp2(total)[..., None] * s + _product("bjhk,bjhv->bhkv", kdec, vc, "state" in once)
+        ys.append(y)
+    return torch.cat(ys, 1)[:, :l].to(r.dtype), s, max_exp
+
+
+def _tol_ratio(got: torch.Tensor, want: torch.Tensor, tol: dict) -> float:
+    """Largest |got - want| over atol + rtol |want|; above 1 fails ``tol``."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / (tol["atol"] + tol["rtol"] * want.abs())).max())
+
+
+# (b, l, h, k, v, w): several K and V, K = V = 128, a ragged L, an L of 1024,
+# the strong decay w = 1e-12 and decays close to 1
+EMU_CASES = {
+    "k64": (2, 256, 4, 64, 64, None),
+    "k64_h8": (1, 512, 8, 64, 64, None),
+    "k32_ragged": (2, 200, 3, 32, 32, None),
+    "k128": (1, 256, 2, 128, 128, None),
+    "k16_v48": (2, 100, 2, 16, 48, None),
+    "l1024": (1, 1024, 2, 64, 64, None),
+    "strong_decay": (1, 256, 2, 64, 64, "strong"),
+    "near_one": (1, 256, 2, 64, 64, "near_one"),
+}
+
+
+def _emulation_ratios(case: str, dtype: torch.dtype, once=()) -> tuple[float, float, float]:
+    """(y, state) error over the kernel's tolerances, emulated against
+    ``wkv_chunked``, and the largest factored exponent."""
+    b, l, h, kd, vd, decay = EMU_CASES[case]
+    r, k, v, w, u = _torch(*_inputs(l + kd, b, l, h, kd, vd))
+    if decay == "strong":
+        w = torch.full_like(w, 1e-12)
+    elif decay == "near_one":
+        w = 1.0 - 1e-3 * torch.from_numpy(np.random.default_rng(1).random(w.shape, dtype=np.float32))
+    r, k, v = r.to(dtype), k.to(dtype), v.to(dtype)
+    y_want, s_want = ref.wkv_chunked(r, k, v, w, u)
+    y, s, max_exp = _emulate_kernel(r, k, v, w, u, once)
+    y_tol = TOL if dtype == torch.float32 else BF16_OUT_TOL
+    return _tol_ratio(y, y_want, y_tol), _tol_ratio(s, s_want, TOL), max_exp
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(EMU_CASES))
+def test_split_operand_emulation_stays_within_tolerance(case, dtype):
+    y_ratio, s_ratio, _ = _emulation_ratios(case, dtype)
+    assert y_ratio <= 1.0 and s_ratio <= 1.0, (y_ratio, s_ratio)
+
+
+def test_one_bf16_rounding_of_score_operands_would_exceed_tolerance():
+    # why the kernel splits the factored r and k: rounded once, their 2**-9
+    # relative error moves bf16 outputs by up to about two bf16 steps
+    worst = max(_emulation_ratios(c, torch.bfloat16, once=("score",))[0] for c in ("k64", "k64_h8", "l1024"))
+    assert worst > 1.4
+
+
+@pytest.mark.parametrize("case", ["strong_decay", "near_one", "k32_ragged"])
+def test_factored_exponents_are_nonpositive_and_finite(case):
+    b, l, h, kd, vd, decay = EMU_CASES[case]
+    r, k, v, w, u = _torch(*_inputs(3, b, l, h, kd, vd))
+    if decay == "strong":
+        w = torch.full_like(w, 1e-12)
+    y, s, max_exp = _emulate_kernel(r, k, v, w, u)
+    assert max_exp <= 0.0
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("strong", [False, True], ids=["decay", "strong_decay"])
 @pytest.mark.parametrize(
@@ -195,7 +346,11 @@ def test_kernel_wrapper_refuses_grad_and_other_devices():
     [(torch.float32, torch.float32), (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)],
     ids=["f32", "bf16_w_f32", "bf16"],
 )
-@pytest.mark.parametrize("b,l,h,kd,vd", [(1, 128, 2, 64, 64), (2, 200, 3, 32, 32), (1, 256, 2, 64, 128)])
+@pytest.mark.parametrize(
+    "b,l,h,kd,vd",
+    [(1, 128, 2, 64, 64), (2, 200, 3, 32, 32), (1, 256, 2, 64, 128), (2, 100, 2, 128, 128),
+     (1, 1100, 2, 48, 16)],
+)
 def test_cuda_kernel_matches_plain_version(b, l, h, kd, vd, dtype, w_dtype, strong):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the wkv kernel has no CPU mode")
@@ -213,3 +368,25 @@ def test_cuda_kernel_matches_plain_version(b, l, h, kd, vd, dtype, w_dtype, stro
     y_tol = TOL if dtype == torch.float32 else BF16_OUT_TOL
     torch.testing.assert_close(y.float(), y_want.float(), **y_tol)
     torch.testing.assert_close(s, s_want, **TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_takes_unaligned_views_and_fills_the_card_in_one_wave():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the wkv kernel has no CPU mode")
+    b, l, h, kd, vd = 1, 130, 2, 32, 32
+    r, k, v, w, u = (t.to("cuda") for t in _torch(*_inputs(12, b, l + 1, h, kd, vd)))
+    # contiguous views that start one bf16 element in: the kernel's 16-byte
+    # copies need aligned starts, so the wrapper copies them
+    r, k, v = (t.bfloat16().flatten()[1 : 1 + b * l * h * t.shape[-1]] for t in (r, k, v))
+    r, k, v = r.view(b, l, h, kd), k.view(b, l, h, kd), v.view(b, l, h, vd)
+    w = w[:, 1:].contiguous()
+    assert r.data_ptr() % 16 != 0
+    y_want, s_want = ref.wkv_chunked(r, k, v, w, u)
+    with torch.inference_mode():
+        y, s = ops.wkv(r, k, v, w, u)
+    torch.testing.assert_close(y.float(), y_want.float(), **BF16_OUT_TOL)
+    torch.testing.assert_close(s, s_want, **TOL)
+    # rwkv6-3b's serving shape: B * H = 160 blocks of K = V = 64
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert ops.blocks_per_sm(64, torch.bfloat16, torch.float32) * sms >= 160
