@@ -10,8 +10,8 @@ Phases, in order (any failure raises and the script exits non-zero):
 2. build: compiles the four CUDA kernels (chargax_step, flash_attention,
    mamba2_ssd, rwkv6_wkv) from the checkout (nvcc, sm_90a, one nvcc each, all started
    together) into build/, and prints each build's seconds and ptxas' report
-   (each entry function, its registers and its spill bytes); a WKV instance
-   that spills fails;
+   (each entry function, its registers and its spill bytes); an SSD or WKV
+   instance that spills fails;
 3. kernel vs plain: the kernel against ``fused_step_ref`` on random slabs,
    B in {1, 300, 16384}, layouts paper_16 / deep_4x4 / kiosk_ac_4, with an
    unlimited feeder cap and one at half of each env's requested power, at
@@ -36,9 +36,11 @@ Phases, in order (any failure raises and the script exits non-zero):
    JAX package's kernel tolerance) and bf16 within one bf16 rounding of the
    output (rtol 2**-7, atol 1e-3);
 9. SSD kernel vs plain: ``ssd`` against ``ssd_chunked`` (y and final state),
-   five (b, l, h, p, n) shapes up to the serving one, fp32 within 2e-4 (the
-   JAX package's), bf16 y within one bf16 rounding (rtol 2**-7, atol 1e-3),
-   the fp32 final state within 2e-4 in both dtypes;
+   six (b, l, h, p, n) shapes up to the serving one (P = N = 128, a ragged
+   L, L shorter than a chunk, N = 16), fp32 and bf16, each also under the
+   strong decay a = -1e3: fp32 within 2e-4 (the JAX package's), bf16 y
+   within one bf16 rounding (rtol 2**-7, atol 1e-3), the fp32 final state
+   within 2e-4 in both dtypes, all finite;
 10. zamba2 on the card against the CPU: full width with 6 layers (one
    group, one shared-attention site) in fp32, the same weights on both
    devices, last-position prefill logits of 256 tokens; then the smoke config
@@ -53,7 +55,9 @@ Phases, in order (any failure raises and the script exits non-zero):
    ``make_serve_step`` timed step by step, its tokens equal to generate's;
 12. kernel time of flash attention and SSD at the serving shapes beside
    their plain versions, their bounds and (flash) SDPA as a yardstick, with
-   flash's achieved TFLOP/s and its time over SDPA's;
+   flash's achieved TFLOP/s and its time over SDPA's; the SSD's blocks per
+   SM, the waves its grid takes (one, or it fails) and the tensor-core
+   instructions in its library's SASS (none fails);
 13. profile: one more zamba2 prefill under ``torch.profiler``: device busy
    ms, idle share of the unprofiled prefill, kernels per prefill, top
    kernels; then the zamba2 model is freed;
@@ -156,9 +160,12 @@ FA_VARIANTS = {
 # step, at most 2**-7 of the value, plus fp32 noise
 FA_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=2**-7, atol=1e-3)}
 SSD_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4), torch.bfloat16: dict(rtol=2**-7, atol=1e-3)}
-# (b, l, h, p, n); the last is zamba2-1.2b's serving shape
+# (b, l, h, p, n): P = N = 128 (two P tiles), a ragged L with N = 16, L
+# shorter than a chunk, N = 16 with P = 64; the last is zamba2-1.2b's serving
+# shape
 SSD_SHAPES = [(1, 256, 2, 64, 64), (2, 128, 3, 128, 128), (2, 200, 4, 32, 16), (2, 8, 4, 32, 16),
-              (4, 4096, 64, 64, 64)]
+              (2, 300, 2, 64, 16), (4, 4096, 64, 64, 64)]
+SSD_STRONG_A = -1e3  # every decay inside a chunk underflows to 0
 # (b, l, h, k, v): one chunk pair, a ragged L, V = 128 (two V tiles), K = V =
 # 128, and rwkv6-3b's prefill at 4 x 4096 (the shape the main path launches)
 WKV_SHAPES = [(1, 128, 2, 64, 64), (2, 200, 3, 32, 32), (1, 256, 2, 64, 128), (2, 100, 2, 128, 128),
@@ -347,7 +354,8 @@ def profile_episode(env: ChargaxEnv, policy, net, gen, episode_s: float) -> dict
 
 def build_all() -> tuple[float, dict[str, Path]]:
     """Phase 2: one nvcc per kernel source, all started together.  Returns the
-    seconds it took and each library's path; fails if a WKV instance spills."""
+    seconds it took and each library's path; fails if an SSD or WKV instance
+    spills."""
     builders = {
         "chargax_step": ops.build_kernel,
         "flash_attention": fa_ops.build_kernel,
@@ -373,12 +381,12 @@ def build_all() -> tuple[float, dict[str, Path]]:
             ):
                 print(f"  nvcc: {line.strip()}")
     print(f"build: all kernels in {total_s:.2f} s")
-    wkv_log = results["rwkv6_wkv"][1]
-    spills = [line for line in wkv_log.splitlines() if "spill" in line]
-    check(
-        all(re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line) for line in spills),
-        f"rwkv6_wkv spills registers: {spills}",
-    )
+    for name in ("mamba2_ssd", "rwkv6_wkv"):
+        spills = [line for line in results[name][1].splitlines() if "spill" in line]
+        check(
+            all(re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line) for line in spills),
+            f"{name} spills registers: {spills}",
+        )
     return total_s, {name: path for name, (path, _, _) in results.items()}
 
 
@@ -424,11 +432,15 @@ def flash_vs_plain(dev: torch.device) -> float:
     return max(worst.values())
 
 
-def ssd_inputs(shape, dtype, gen, dev):
+def ssd_inputs(shape, dtype, gen, dev, strong: bool = False):
+    """x, B, C in ``dtype``; dt = softplus(x - 1) + 1e-3 and a = -exp(x / 2)
+    in fp32, or a = SSD_STRONG_A everywhere (``strong``)."""
     b, l, h, p, n = shape
     x = _randn((b, l, h, p), gen, dev, dtype)
     dt = F.softplus(torch.randn((b, l, h), generator=gen, device=dev) - 1.0) + 1e-3
     a = -torch.exp(torch.randn((h,), generator=gen, device=dev) * 0.5)
+    if strong:
+        a = torch.full_like(a, SSD_STRONG_A)
     bm = (torch.randn((b, l, n), generator=gen, device=dev) / n**0.5).to(dtype)
     cm = (torch.randn((b, l, n), generator=gen, device=dev) / n**0.5).to(dtype)
     return x, dt, a, bm, cm
@@ -440,23 +452,26 @@ def ssd_vs_plain(dev: torch.device) -> float:
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for shape in SSD_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            args = ssd_inputs(shape, dtype, gen, dev)
-            y, s = ssd_ops.ssd(*args)
-            y_want, s_want = ssd_chunked(*args)
-            torch.cuda.synchronize()
-            errs = {}
-            for name, g, w, tol in (
-                ("y", y.float(), y_want.float(), SSD_TOL[dtype]),
-                ("state", s, s_want, SSD_TOL[torch.float32]),  # fp32 in both dtypes
-            ):
-                check(bool(torch.isfinite(g).all()), f"ssd {shape} {name}: not finite")
-                errs[name] = float((g - w).abs().max())
-                check(
-                    torch.allclose(g, w, **tol),
-                    f"ssd vs plain {shape} {dtype} {name}: max abs err {errs[name]}",
-                )
-            worst[dtype] = max(worst[dtype], *errs.values())
-            print(f"ssd vs plain {shape} {str(dtype)[6:]}: y={errs['y']:.3g} state={errs['state']:.3g}")
+            for strong in (False, True):
+                args = ssd_inputs(shape, dtype, gen, dev, strong)
+                with torch.inference_mode():
+                    y, s = ssd_ops.ssd(*args)
+                    y_want, s_want = ssd_chunked(*args)
+                torch.cuda.synchronize()
+                label = f"{shape} {str(dtype)[6:]}{' strong decay' if strong else ''}"
+                errs = {}
+                for name, g, w, tol in (
+                    ("y", y.float(), y_want.float(), SSD_TOL[dtype]),
+                    ("state", s, s_want, SSD_TOL[torch.float32]),  # fp32 in both dtypes
+                ):
+                    check(bool(torch.isfinite(g).all()), f"ssd {label} {name}: not finite")
+                    errs[name] = float((g - w).abs().max())
+                    check(
+                        torch.allclose(g, w, **tol),
+                        f"ssd vs plain {label} {name}: max abs err {errs[name]}",
+                    )
+                worst[dtype] = max(worst[dtype], *errs.values())
+                print(f"ssd vs plain {label}: y={errs['y']:.3g} state={errs['state']:.3g}")
     print(f"ssd vs plain: max abs err fp32 {worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}")
     return max(worst.values())
 
@@ -644,9 +659,10 @@ def _bound(n_bytes: int, n_ops: float) -> tuple[float, str, int, float]:
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, n_ops
 
 
-def lm_kernel_times(dev: torch.device) -> dict[str, dict]:
+def lm_kernel_times(dev: torch.device, ssd_lib: Path) -> dict[str, dict]:
     """Phase 12: each LM kernel at its serving shape, in bf16, inputs rotated
-    over two copies (each copy alone is larger than the 50 MB L2)."""
+    over two copies (each copy alone is larger than the 50 MB L2); the SSD's
+    blocks per SM, waves and tensor-core instructions."""
     cfg = get_config(ZAMBA)
     gen = torch.Generator(device=dev).manual_seed(12)
     b, h, l, d = PREFILL_B, cfg.n_heads, PREFILL_L, cfg.hd
@@ -671,6 +687,16 @@ def lm_kernel_times(dev: torch.device) -> dict[str, dict]:
     )
 
     shape = (b, l, 2 * cfg.d_model // cfg.ssm_head_dim, cfg.ssm_head_dim, cfg.ssm_state)
+    per_sm, blocks = ssd_ops.blocks_per_sm(shape[0], shape[2], shape[3], shape[4], bf16)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    waves = math.ceil(blocks / (per_sm * sms))
+    hmma, hgmma = sass_count(ssd_lib, "HMMA"), sass_count(ssd_lib, "HGMMA")
+    print(
+        f"mamba2_ssd occupancy: {per_sm} blocks per SM x {sms} SMs for {blocks} blocks = {waves} "
+        f"wave(s); SASS: {hmma} HMMA, {hgmma} HGMMA"
+    )
+    check(waves == 1, f"mamba2_ssd takes {waves} waves at the serving shape")
+    check(hmma + hgmma > 0, "mamba2_ssd's library has no tensor-core instruction")
     args = [ssd_inputs(shape, bf16, gen, dev) for _ in range(2)]
     with torch.inference_mode():
         kernel_ms = time_ms(ssd_ops.ssd, args)
@@ -960,7 +986,7 @@ def main() -> int:
     zamba_metrics, zamba_launches, model, prefill, batch = serve_lm(dev, ZAMBA, zamba_counts)
 
     # --- 12. LM kernel time -------------------------------------------------------
-    lm_times = lm_kernel_times(dev)
+    lm_times = lm_kernel_times(dev, libs["mamba2_ssd"])
 
     # --- 13. profile of one zamba2 prefill ------------------------------------------
     prefill_profile = profile_device(lambda: prefill(batch), 1, zamba_metrics["prefill_ms"])

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Hold versions of a CUDA kernel source against each other on one card.
 
-    python3 compare_flash.py [--kernel flash|wkv] NAME=PATH [NAME=PATH ...]
+    python3 compare_flash.py [--kernel flash|ssd|wkv] NAME=PATH [NAME=PATH ...]
 
 ``--kernel flash`` (the default) takes versions of
 ``src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu``,
+``--kernel ssd`` versions of ``src/repro_torch/kernels/mamba2_ssd/csrc/ssd.cu``,
 ``--kernel wkv`` versions of ``src/repro_torch/kernels/rwkv6_wkv/csrc/wkv.cu``.
 ``tree`` names the checkout's own source (an older one can be written out
 with ``git show REV:PATH > build/old.cu``).  Each version is built with the
@@ -12,13 +13,16 @@ repository's nvcc flags into ``build/<kernel>_compare_NAME/``, and printed
 with ptxas' registers and spill bytes per kernel instance and the count of
 tensor-core instructions in its SASS (HMMA: ``mma.sync``; HGMMA: ``wgmma``).
 Then each runs ``chip_smoke.py``'s sweep against the plain version (phase 8
-for flash, against ``mha_blocked``; phase 14 for wkv, against
-``wkv_chunked``), reported as the largest error over the tolerance (above 1
-fails), and its timing at the serving shape (flash: zamba2-1.2b's B=4, H=32,
-L=4096, D=64, bf16, causal, in turns with SDPA; wkv: rwkv6-3b's B=4,
-L=4096, H=40, K=V=64, r/k/v bf16, w fp32, with the blocks one SM holds
-where the version reports them), for two rounds.  It picks between designs;
-``chip_smoke.py`` stays the check.  Needs a CUDA card and ``nvcc``.
+for flash, against ``mha_blocked``; phase 9 for ssd, against
+``ssd_chunked``, with and without the strong decay; phase 14 for wkv,
+against ``wkv_chunked``), reported as the largest error over the tolerance
+(above 1 fails), and its timing at the serving shape (flash: zamba2-1.2b's
+B=4, H=32, L=4096, D=64, bf16, causal, in turns with SDPA; ssd:
+zamba2-1.2b's B=4, L=4096, H=64, P=N=64, bf16; wkv: rwkv6-3b's B=4,
+L=4096, H=40, K=V=64, r/k/v bf16, w fp32; for ssd and wkv with the blocks
+one SM holds where the version reports them), for two rounds.  It picks
+between designs; ``chip_smoke.py`` stays the check.  Needs a CUDA card and
+``nvcc``.
 """
 from __future__ import annotations
 
@@ -39,10 +43,12 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import mha_blocked  # noqa: E402
+from repro_torch.kernels.mamba2_ssd import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.mamba2_ssd.ref import ssd_chunked  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv.ref import wkv_chunked  # noqa: E402
 
-OPS = {"flash": fa_ops, "wkv": wkv_ops}
+OPS = {"flash": fa_ops, "ssd": ssd_ops, "wkv": wkv_ops}
 
 
 def _instance(kernel: str, mangled: str) -> str:
@@ -50,6 +56,9 @@ def _instance(kernel: str, mangled: str) -> str:
     if kernel == "flash":
         route = "bf16" if "bf16" in mangled else "fp32"
         return f"{route} D={re.search(r'ILi(\d+)E', mangled).group(1)}"
+    if kernel == "ssd":
+        dtype = "bf16" if "ssd_kernelI13__nv_bfloat16" in mangled else "fp32"
+        return f"{dtype} {'/'.join(re.findall(r'Li(\d+)E', mangled))}"
     args = mangled.split("wkv_kernelI", 1)[-1].split("Li", 1)[0]
     dtype = "bf16" if args.startswith("13__nv_bfloat16") else "fp32"
     w_dtype = "fp32" if args.endswith("f") else "bf16"
@@ -75,6 +84,30 @@ def _ratio(got: torch.Tensor, want: torch.Tensor, tol: dict) -> float:
     if not bool(torch.isfinite(got).all()):
         return float("inf")
     return float(((got - want).abs() / (tol["atol"] + tol["rtol"] * want.abs())).max())
+
+
+def ssd_sweep(dev: torch.device) -> dict[str, float]:
+    """Largest error over SSD_TOL per dtype and output on phase 9's cases;
+    above 1 fails."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    worst: dict[str, float] = {}
+    for shape in cs.SSD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for strong in (False, True):
+                args = cs.ssd_inputs(shape, dtype, gen, dev, strong)
+                with torch.inference_mode():
+                    y, s = ssd_ops.ssd(*args)
+                y_want, s_want = ssd_chunked(*args)
+                for out, ratio in (
+                    ("y", _ratio(y.float(), y_want.float(), cs.SSD_TOL[dtype])),
+                    ("state", _ratio(s, s_want, cs.SSD_TOL[torch.float32])),
+                ):
+                    label = f"{shape} {str(dtype)[6:]}{' strong' if strong else ''}"
+                    if ratio > 1:
+                        print(f"  FAIL {label} {out}: {ratio:.3f} of SSD_TOL")
+                    key = f"{str(dtype)[6:]} {out}"
+                    worst[key] = max(worst.get(key, 0.0), ratio)
+    return worst
 
 
 def flash_sweep(dev: torch.device) -> dict[str, float]:
@@ -141,6 +174,24 @@ def time_flash(dev: torch.device, libs: dict) -> None:
             print(f"round {rnd} SDPA: {ms:.4f} ms, {n_ops / ms / 1e9:.1f} TFLOP/s")
 
 
+def time_ssd(dev: torch.device, libs: dict) -> None:
+    shape = (cs.PREFILL_B, cs.PREFILL_L, 64, 64, 64)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    args = [cs.ssd_inputs(shape, torch.bfloat16, gen, dev) for _ in range(2)]
+    bound_ms = cs.ssd_bound(*shape, 2)[0]
+    for name, lib in libs.items():
+        if hasattr(lib, "ssd_occupancy"):
+            ssd_ops._library = lambda lib=lib: lib
+            per_sm, blocks = ssd_ops.blocks_per_sm(shape[0], shape[2], shape[3], shape[4], torch.bfloat16)
+            print(f"{name}: {per_sm} blocks per SM, {blocks} blocks at the serving shape")
+    with torch.inference_mode():
+        for rnd in range(2):
+            for name, lib in libs.items():
+                ssd_ops._library = lambda lib=lib: lib
+                ms = cs.time_ms(ssd_ops.ssd, args)
+                print(f"round {rnd} {name}: {ms:.4f} ms, {bound_ms / ms:.4f} of bound")
+
+
 def time_wkv(dev: torch.device, libs: dict) -> None:
     shape = (cs.PREFILL_B, cs.PREFILL_L, 40, 64, 64)
     gen = torch.Generator(device=dev).manual_seed(17)
@@ -172,7 +223,9 @@ def main() -> int:
     libs = {name: build_version(args.kernel, name, path) for name, path in versions.items()}
     dev = torch.device("cuda", torch.cuda.current_device())
     ops = OPS[args.kernel]
-    sweep, time_all = (flash_sweep, time_flash) if args.kernel == "flash" else (wkv_sweep, time_wkv)
+    sweep, time_all = {
+        "flash": (flash_sweep, time_flash), "ssd": (ssd_sweep, time_ssd), "wkv": (wkv_sweep, time_wkv),
+    }[args.kernel]
     for name, lib in libs.items():
         ops._library = lambda lib=lib: lib
         print(f"sweep {name}: largest error over the tolerance {sweep(dev)}", flush=True)

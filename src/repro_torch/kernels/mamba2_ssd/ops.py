@@ -2,9 +2,12 @@
 
 The CUDA kernel (``csrc/ssd.cu``) is compiled with ``nvcc`` for ``sm_90a``
 into ``build/mamba2_ssd/`` at first use (:mod:`repro_torch.kernels._build`)
-and loaded with ``ctypes``.  A CUDA tensor launches it; a CPU tensor runs the
-plain version (:func:`repro_torch.kernels.mamba2_ssd.ref.ssd_chunked`).  There
-is no fallback between the two: a CUDA tensor launches the kernel or raises.
+and loaded with ``ctypes``.  It runs its four products on the tensor cores
+(``mma.sync`` bf16 with each fp32 operand split into a bf16 high part and a
+bf16 remainder) for fp32 and bf16 inputs alike.  A CUDA tensor launches it;
+a CPU tensor runs the plain version
+(:func:`repro_torch.kernels.mamba2_ssd.ref.ssd_chunked`).  There is no
+fallback between the two: a CUDA tensor launches the kernel or raises.
 
 The kernel has no backward: the serving path runs under
 ``torch.inference_mode()``, and a CUDA input that requires grad raises.
@@ -22,7 +25,7 @@ from repro_torch.kernels.mamba2_ssd.ref import ssd_chunked, ssd_decode_step
 
 Tensor = torch.Tensor
 
-__all__ = ["ssd", "ssd_decode_step", "build_kernel"]
+__all__ = ["ssd", "ssd_decode_step", "build_kernel", "blocks_per_sm"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
 DTYPES = (torch.float32, torch.bfloat16)
@@ -35,14 +38,34 @@ def build_kernel() -> tuple[Path, str]:
     return build(SOURCE, "mamba2_ssd")
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    path, _ = build_kernel()
+def bind(path: Path) -> ctypes.CDLL:
+    """Load a built library and declare ``ssd_launch``'s C types."""
     lib = ctypes.CDLL(str(path))
     fn = lib.ssd_launch
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    path, _ = build_kernel()
+    return bind(path)
+
+
+def blocks_per_sm(bsz: int, h: int, p: int, n: int, dtype: torch.dtype) -> tuple[int, int]:
+    """For x of shape (bsz, L, h, p), B and C of width n, in ``dtype``: the
+    blocks of the kernel one SM holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the blocks its
+    grid has.  Needs a card."""
+    fn = _library().ssd_occupancy
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    per_sm, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    err = fn(bsz, h, p, n, int(dtype == torch.bfloat16), ctypes.byref(per_sm), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"ssd occupancy query failed with CUDA error {err}")
+    return per_sm.value, blocks.value
 
 
 def _launch(
@@ -74,6 +97,8 @@ def _launch(
         return y, state
     if l == 0:
         return y, state.zero_()
+    # the kernel copies 16-byte pieces; a view that starts off that alignment is copied
+    x, dt, b_mat, c_mat = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, dt, b_mat, c_mat))
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -33,6 +33,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.rwkv6_wkv import ops, ref
+from split_mma import split_product, tol_ratio
 
 TOL = dict(rtol=3e-4, atol=3e-4)
 BF16_TOL = dict(rtol=3e-2, atol=3e-2)
@@ -214,22 +215,6 @@ def test_kernel_wrapper_refuses_grad_and_other_devices():
 SUB = 16  # rows of a sub-chunk, ``kSub`` in csrc/wkv.cu
 
 
-def _bf16(x: torch.Tensor) -> torch.Tensor:
-    return x.bfloat16().float()
-
-
-def _product(eq: str, a: torch.Tensor, b: torch.Tensor, once: bool) -> torch.Tensor:
-    """One tensor-core product of fp32 operands as the kernel forms it: each
-    operand split into a bf16 high part and a bf16 remainder, summed in fp32
-    as hi*hi + hi*lo + lo*hi; or, with ``once``, each rounded to bf16 once.
-    An operand exact in bf16 has a zero remainder."""
-    if once:
-        return torch.einsum(eq, _bf16(a), _bf16(b))
-    ah, bh = _bf16(a), _bf16(b)
-    al, bl = _bf16(a - ah), _bf16(b - bh)
-    return torch.einsum(eq, ah, bh) + torch.einsum(eq, ah, bl) + torch.einsum(eq, al, bh)
-
-
 def _emulate_kernel(r, k, v, w, u, once=()):
     """The kernel's arithmetic in plain PyTorch.  Chunks of 64 rows padded
     with the identity (r = k = v = 0, w = 1); log decays in base 2; in each
@@ -267,22 +252,16 @@ def _emulate_kernel(r, k, v, w, u, once=()):
                 n_b = cw[:, (b + 1) * SUB - 1, None]
                 e_r, e_k = cs[:, ia] - n_b, n_b - cw[:, ib]
                 max_exp = max(max_exp, float(e_r.max()), float(e_k.max()))
-                score[:, :, ia, ib] = _product(
+                score[:, :, ia, ib] = split_product(
                     "bihk,bjhk->bhij", rc[:, ia] * torch.exp2(e_r), kc[:, ib] * torch.exp2(e_k),
                     "score" in once,
                 )
-        y = _product("bhij,bjhv->bihv", score, vc, "score_v" in once)
-        y = y + _product("bihk,bhkv->bihv", rc * torch.exp2(cs), s, "inter" in once)
+        y = split_product("bhij,bjhv->bihv", score, vc, "score_v" in once)
+        y = y + split_product("bihk,bhkv->bihv", rc * torch.exp2(cs), s, "inter" in once)
         kdec = kc * torch.exp2(total[:, None] - cw)
-        s = torch.exp2(total)[..., None] * s + _product("bjhk,bjhv->bhkv", kdec, vc, "state" in once)
+        s = torch.exp2(total)[..., None] * s + split_product("bjhk,bjhv->bhkv", kdec, vc, "state" in once)
         ys.append(y)
     return torch.cat(ys, 1)[:, :l].to(r.dtype), s, max_exp
-
-
-def _tol_ratio(got: torch.Tensor, want: torch.Tensor, tol: dict) -> float:
-    """Largest |got - want| over atol + rtol |want|; above 1 fails ``tol``."""
-    got, want = got.float(), want.float()
-    return float(((got - want).abs() / (tol["atol"] + tol["rtol"] * want.abs())).max())
 
 
 # (b, l, h, k, v, w): several K and V, K = V = 128, a ragged L, an L of 1024,
@@ -312,7 +291,7 @@ def _emulation_ratios(case: str, dtype: torch.dtype, once=()) -> tuple[float, fl
     y_want, s_want = ref.wkv_chunked(r, k, v, w, u)
     y, s, max_exp = _emulate_kernel(r, k, v, w, u, once)
     y_tol = TOL if dtype == torch.float32 else BF16_OUT_TOL
-    return _tol_ratio(y, y_want, y_tol), _tol_ratio(s, s_want, TOL), max_exp
+    return tol_ratio(y, y_want, y_tol), tol_ratio(s, s_want, TOL), max_exp
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
