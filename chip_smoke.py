@@ -10,12 +10,13 @@ Phases, in order (any failure raises and the script exits non-zero):
 2. build: compiles the four CUDA kernels (chargax_step, flash_attention,
    mamba2_ssd, rwkv6_wkv) from the checkout (nvcc, sm_90a, one nvcc each, all started
    together) into build/, and prints each build's seconds and ptxas' report
-   (each entry function, its registers and its spill bytes); an SSD or WKV
-   instance that spills fails;
+   (each entry function, its registers and its spill bytes); a
+   chargax_step, SSD or WKV instance that spills fails;
 3. kernel vs plain: the kernel against ``fused_step_ref`` on random slabs,
-   B in {1, 300, 16384}, layouts paper_16 / deep_4x4 / kiosk_ac_4, with an
-   unlimited feeder cap and one at half of each env's requested power, at
-   rtol 1e-4 / atol 2e-4;
+   B in {1, 300, 16384}, layouts paper_16 / deep_4x4 / kiosk_ac_4 and
+   paper_16 padded as a fleet pads it (``pad_evse=40, pad_nodes=36``: 41
+   poles, 36 nodes), with an unlimited feeder cap and one at half of each
+   env's requested power, at rtol 1e-4 / atol 2e-4;
 4. episodes: a 64-env, 24-step rollout on the card against the same rollout
    on the CPU (same actions, same injected arrival draws), then ``evaluate``
    of 16384 envs (paper_16, fused step) through a full 288-step episode
@@ -24,7 +25,10 @@ Phases, in order (any failure raises and the script exits non-zero):
    episode of the paper's max-charge baseline;
 5. serve: a (131072, obs_dim) observation batch through ``serve``, 10 calls;
 6. kernel time: the kernel and its plain version at B=16384 (paper_16),
-   beside the least time the card could take for the same work;
+   inputs rotated past the 50 MB L2 and, for the kernel, also with its
+   inputs in L2, beside the least time the card could take for the same
+   work; the blocks one SM holds and the waves the grid takes (one, or it
+   fails);
 7. profile: one more greedy 16384-env episode under ``torch.profiler``: the
    device's busy ms per step, its idle share of the unprofiled episode of
    phase 4, device kernels per step and the kernels that take most time;
@@ -243,11 +247,21 @@ def time_ms(fn, args_list, warmup: int = 10, n: int = 50) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
+# phase 3's station layouts: the bundled ones, and paper_16 padded as a fleet
+# pads it (40 EVSEs and the battery, 36 nodes)
+KERNEL_LAYOUTS = {
+    "paper_16": dict(architecture="paper_16"),
+    "deep_4x4": dict(architecture="deep_4x4"),
+    "kiosk_ac_4": dict(architecture="kiosk_ac_4"),
+    "padded_41x36": dict(pad_evse=40, pad_nodes=36),
+}
+
+
 def kernel_vs_plain(dev: torch.device) -> tuple[float, tuple]:
     """Phase 3.  Returns the largest abs error and the B=16384 paper_16 inputs."""
     max_err, main_inputs = 0.0, None
-    for layout in ("paper_16", "deep_4x4", "kiosk_ac_4"):
-        env = ChargaxEnv(EnvConfig(architecture=layout, fused_step=True), device=dev)
+    for layout, config in KERNEL_LAYOUTS.items():
+        env = ChargaxEnv(EnvConfig(fused_step=True, **config), device=dev)
         pp = env.default_params.pole
         dt = env.config.dt_hours
         for b in (1, 300, NUM_ENVS):
@@ -271,7 +285,8 @@ def kernel_vs_plain(dev: torch.device) -> tuple[float, tuple]:
                     )
                 max_err = max(max_err, *errs.values())
                 print(
-                    f"kernel vs plain {layout} B={b} cap={cap_name}: "
+                    f"kernel vs plain {layout} (P={pp.member.shape[1]}, Nn={pp.member.shape[0]}) "
+                    f"B={b} cap={cap_name}: "
                     + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
                 )
                 cap = 0.5 * want.p_req.clamp_min(1.0)  # binds wherever the envs draw
@@ -354,8 +369,8 @@ def profile_episode(env: ChargaxEnv, policy, net, gen, episode_s: float) -> dict
 
 def build_all() -> tuple[float, dict[str, Path]]:
     """Phase 2: one nvcc per kernel source, all started together.  Returns the
-    seconds it took and each library's path; fails if an SSD or WKV instance
-    spills."""
+    seconds it took and each library's path; fails if a chargax_step, SSD or
+    WKV instance spills."""
     builders = {
         "chargax_step": ops.build_kernel,
         "flash_attention": fa_ops.build_kernel,
@@ -381,7 +396,7 @@ def build_all() -> tuple[float, dict[str, Path]]:
             ):
                 print(f"  nvcc: {line.strip()}")
     print(f"build: all kernels in {total_s:.2f} s")
-    for name in ("mamba2_ssd", "rwkv6_wkv"):
+    for name in ("chargax_step", "mamba2_ssd", "rwkv6_wkv"):
         spills = [line for line in results[name][1].splitlines() if "spill" in line]
         check(
             all(re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line) for line in spills),
@@ -855,6 +870,50 @@ def wkv_kernel_time(dev: torch.device, lib: Path) -> dict:
     return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
+def chargax_bound(b: int, p: int, nn: int) -> tuple[float, str, int, int]:
+    """Least time of one chargax_step on the card: 7 slabs read and 5
+    written once, the cap read and excess/p_req written once, the (P,) and
+    (Nn,) params read once, against its float operations at the fp32 rate."""
+    n_bytes = 4 * (b * p * 12 + 3 * b + 4 * p + 2 * nn)
+    n_ops = b * p * (OPS_PER_POLE + OPS_PER_POLE_NODE * nn)
+    bytes_ms = n_bytes / PEAK_HBM_BYTES_PER_S * 1000.0
+    ops_ms = n_ops / PEAK_FP32_OPS_PER_S * 1000.0
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, n_ops
+
+
+def chargax_kernel_time(dev: torch.device, slabs: PoleSlabs, pp, dt: float) -> tuple:
+    """Phase 6: the kernel at B=16384 (paper_16) with its inputs rotated past
+    the L2 and with them in L2, its plain version, its bound; the blocks one
+    SM holds and the waves the grid takes (one, or it fails).  Returns (ms,
+    plain ms, L2-warm ms, bound ms, what bounds it)."""
+    b, p = slabs.target.shape
+    nn = pp.member.shape[0]
+    per_sm, blocks = ops.blocks_per_sm(b, p, nn)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    waves = math.ceil(blocks / (per_sm * sms))
+    print(
+        f"chargax_step occupancy: {per_sm} blocks per SM x {sms} SMs for {blocks} blocks "
+        f"= {waves} wave(s)"
+    )
+    check(waves == 1, f"chargax_step takes {waves} waves at B={b}")
+    cap = torch.full((b,), 1e9, device=dev)  # the main path's (unlimited) table cap
+    # eight input copies (8 x 13.6 MB) rotate past the 50 MB L2
+    copies = [(PoleSlabs(*(x.clone() for x in slabs)), pp, dt, cap.clone()) for _ in range(8)]
+    kernel_ms = time_ms(ops.chargax_step, copies)
+    plain_ms = time_ms(fused_step_ref, copies)
+    warm_ms = time_ms(ops.chargax_step, copies[:1])
+    bound_ms, bound_by, n_bytes, n_ops = chargax_bound(b, p, nn)
+    print(
+        f"kernel time paper_16 B={b}: {kernel_ms:.5f} ms (inputs in L2: {warm_ms:.5f} ms), "
+        f"plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms by {bound_by} "
+        f"({n_bytes} bytes at {PEAK_HBM_BYTES_PER_S / 1e12} TB/s HBM, H100 SXM data sheet; "
+        f"{n_ops} ops at {PEAK_FP32_OPS_PER_S / 1e12} TFLOP/s fp32), achieved "
+        f"{bound_ms / kernel_ms:.4f} of bound ({bound_ms / warm_ms:.4f} with inputs in L2), "
+        f"{n_bytes / kernel_ms / 1e9:.4f} TB/s"
+    )
+    return kernel_ms, plain_ms, warm_ms, bound_ms, bound_by
+
+
 def check_kpis(result: dict, label: str) -> None:
     check(all(math.isfinite(v) for v in result.values()), f"{label}: non-finite KPIs {result}")
     check(result["energy_delivered_kwh"] > 0, f"{label}: no energy delivered")
@@ -948,26 +1007,7 @@ def main() -> int:
     )
 
     # --- 6. kernel time -----------------------------------------------------------
-    b, p = slabs.target.shape
-    nn = pp.member_bits.shape[0]
-    cap = torch.full((b,), 1e9, device=dev)  # the main path's (unlimited) table cap
-    # eight input copies (8 x 13.6 MB) rotate past the 50 MB L2
-    copies = [(PoleSlabs(*(x.clone() for x in slabs)), pp, dt, cap.clone()) for _ in range(8)]
-    kernel_ms = time_ms(ops.chargax_step, copies)
-    plain_ms = time_ms(fused_step_ref, copies)
-    warm_ms = time_ms(ops.chargax_step, copies[:1])
-    n_bytes = 4 * (b * p * 12 + 3 * b + 4 * p + 2 * nn)  # 7 slabs in, 5 out, cap/excess/p_req
-    n_ops = b * p * (OPS_PER_POLE + OPS_PER_POLE_NODE * nn)
-    bytes_ms = n_bytes / PEAK_HBM_BYTES_PER_S * 1000.0
-    ops_ms = n_ops / PEAK_FP32_OPS_PER_S * 1000.0
-    bound_ms = max(bytes_ms, ops_ms)
-    print(
-        f"kernel time paper_16 B={b}: {kernel_ms:.5f} ms (inputs in L2: {warm_ms:.5f} ms), "
-        f"plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms "
-        f"({n_bytes} bytes at {PEAK_HBM_BYTES_PER_S / 1e12} TB/s HBM, H100 SXM data sheet; "
-        f"{n_ops} ops take {ops_ms:.5f} ms at {PEAK_FP32_OPS_PER_S / 1e12} TFLOP/s fp32), "
-        f"achieved {bound_ms / kernel_ms:.3f} of bound"
-    )
+    kernel_ms, plain_ms, warm_ms, bound_ms, bound_by = chargax_kernel_time(dev, slabs, pp, dt)
 
     # --- 7. profile ---------------------------------------------------------------
     print(json.dumps({"profile": profile_episode(env, policy, net, gen, episode_s)}))
@@ -1040,7 +1080,7 @@ def main() -> int:
             "ms": kernel_ms,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes this function
         },
         {

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Hold versions of a CUDA kernel source against each other on one card.
 
-    python3 compare_flash.py [--kernel flash|ssd|wkv] NAME=PATH [NAME=PATH ...]
+    python3 compare_flash.py [--kernel flash|ssd|wkv|chargax] NAME=PATH [NAME=PATH ...]
 
 ``--kernel flash`` (the default) takes versions of
 ``src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu``,
 ``--kernel ssd`` versions of ``src/repro_torch/kernels/mamba2_ssd/csrc/ssd.cu``,
-``--kernel wkv`` versions of ``src/repro_torch/kernels/rwkv6_wkv/csrc/wkv.cu``.
+``--kernel wkv`` versions of ``src/repro_torch/kernels/rwkv6_wkv/csrc/wkv.cu``,
+``--kernel chargax`` versions of
+``src/repro_torch/kernels/chargax_step/csrc/chargax_step.cu``.
 ``tree`` names the checkout's own source (an older one can be written out
 with ``git show REV:PATH > build/old.cu``).  Each version is built with the
 repository's nvcc flags into ``build/<kernel>_compare_NAME/``, and printed
@@ -15,12 +17,15 @@ tensor-core instructions in its SASS (HMMA: ``mma.sync``; HGMMA: ``wgmma``).
 Then each runs ``chip_smoke.py``'s sweep against the plain version (phase 8
 for flash, against ``mha_blocked``; phase 9 for ssd, against
 ``ssd_chunked``, with and without the strong decay; phase 14 for wkv,
-against ``wkv_chunked``), reported as the largest error over the tolerance
-(above 1 fails), and its timing at the serving shape (flash: zamba2-1.2b's
-B=4, H=32, L=4096, D=64, bf16, causal, in turns with SDPA; ssd:
-zamba2-1.2b's B=4, L=4096, H=64, P=N=64, bf16; wkv: rwkv6-3b's B=4,
-L=4096, H=40, K=V=64, r/k/v bf16, w fp32; for ssd and wkv with the blocks
-one SM holds where the version reports them), for two rounds.  It picks
+against ``wkv_chunked``; for chargax phase 3's, against ``fused_step_ref``,
+on paper_16 and the padded 41-pole, 36-node layout), reported as the
+largest error over the tolerance (above 1 fails), and its timing at the
+serving shape (flash: zamba2-1.2b's B=4, H=32, L=4096, D=64, bf16, causal,
+in turns with SDPA; ssd: zamba2-1.2b's B=4, L=4096, H=64, P=N=64, bf16;
+wkv: rwkv6-3b's B=4, L=4096, H=40, K=V=64, r/k/v bf16, w fp32; chargax:
+B=16384 envs of paper_16, inputs rotated past the L2 and in L2; for ssd,
+wkv and chargax with the blocks one SM holds where the version reports
+them), for two rounds.  It picks
 between designs; ``chip_smoke.py`` stays the check.  Needs a CUDA card and
 ``nvcc``.
 """
@@ -40,7 +45,10 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
+from repro_torch.core import ChargaxEnv, EnvConfig  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.chargax_step import ops as cg_ops  # noqa: E402
+from repro_torch.kernels.chargax_step.ref import FusedOut, PoleSlabs, fused_step_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import mha_blocked  # noqa: E402
 from repro_torch.kernels.mamba2_ssd import ops as ssd_ops  # noqa: E402
@@ -48,11 +56,13 @@ from repro_torch.kernels.mamba2_ssd.ref import ssd_chunked  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv.ref import wkv_chunked  # noqa: E402
 
-OPS = {"flash": fa_ops, "ssd": ssd_ops, "wkv": wkv_ops}
+OPS = {"flash": fa_ops, "ssd": ssd_ops, "wkv": wkv_ops, "chargax": cg_ops}
 
 
 def _instance(kernel: str, mangled: str) -> str:
     """A short name of a kernel instance from its mangled name."""
+    if kernel == "chargax":
+        return "chargax_step_kernel"
     if kernel == "flash":
         route = "bf16" if "bf16" in mangled else "fp32"
         return f"{route} D={re.search(r'ILi(\d+)E', mangled).group(1)}"
@@ -210,6 +220,95 @@ def time_wkv(dev: torch.device, libs: dict) -> None:
                 print(f"round {rnd} {name}: {ms:.4f} ms, {bound_ms / ms:.4f} of bound")
 
 
+def chargax_runner(lib, dev: torch.device):
+    """The kernel of ``lib`` as ``(slabs, pp, dt, cap) -> FusedOut``.  A
+    library without ``chargax_step_occupancy`` is the one-warp-per-env
+    design, which takes membership as one uint32 bitmask per node in place
+    of the (Nn, P) float matrix; everything else is the same call."""
+    legacy = not hasattr(lib, "chargax_step_occupancy")
+    bits: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}  # id -> (member, its bitmasks)
+
+    def member_arg(member: torch.Tensor) -> torch.Tensor:
+        if not legacy:
+            return member
+        if id(member) not in bits:  # packed once, outside the timed launches
+            weights = 2 ** torch.arange(member.shape[1], dtype=torch.int64, device=member.device)
+            packed = ((member > 0).long() * weights).sum(1)
+            bits[id(member)] = member, torch.where(packed >= 2**31, packed - 2**32, packed).int()
+        return bits[id(member)][1]
+
+    def run(slabs: PoleSlabs, pp, dt: float, cap: torch.Tensor) -> FusedOut:
+        b, p = slabs.target.shape
+        outs = [torch.empty((b, p), device=dev) for _ in range(5)]
+        outs += [torch.empty((b,), device=dev) for _ in range(2)]
+        ins = [*slabs, cap, pp.voltage, pp.imax, pp.eff, pp.power_w, member_arg(pp.member),
+               pp.node_budget]
+        err = lib.chargax_step_launch(
+            *[x.data_ptr() for x in ins], *[x.data_ptr() for x in outs],
+            b, p, pp.member.shape[0], dt, torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"chargax_step launch failed with CUDA error {err}")
+        return FusedOut(*outs)
+
+    return run
+
+
+def chargax_sweep(dev: torch.device) -> dict[str, float]:
+    """Largest error over TOL per layout on phase 3's cases (paper_16 and the
+    padded layout), for the library ``cg_ops._library`` returns; above 1
+    fails."""
+    lib = cg_ops._library()
+    run = chargax_runner(lib, dev)
+    worst: dict[str, float] = {}
+    for layout in ("paper_16", "padded_41x36"):
+        env = ChargaxEnv(EnvConfig(fused_step=True, **cs.KERNEL_LAYOUTS[layout]), device=dev)
+        pp, dt = env.default_params.pole, env.config.dt_hours
+        if not hasattr(lib, "chargax_step_occupancy") and pp.member.shape[1] > 32:
+            print(f"  {layout}: skipped, the one-warp-per-env design takes at most 32 poles")
+            continue
+        for b in (1, 300, cs.NUM_ENVS):
+            slabs = cs.random_slabs(env, b, seed=b)
+            cap = torch.full((b,), cg_ops.BIG, device=dev)
+            for cap_name in ("unlimited", "binding"):
+                got = run(slabs, pp, dt, cap)
+                want = fused_step_ref(slabs, pp, dt, cap)
+                ratio = max(_ratio(g, w, cs.TOL) for g, w in zip(got, want))
+                if ratio > 1:
+                    print(f"  FAIL {layout} B={b} cap={cap_name}: {ratio:.3f} of TOL")
+                worst[layout] = max(worst.get(layout, 0.0), ratio)
+                cap = 0.5 * want.p_req.clamp_min(1.0)
+    return worst
+
+
+def time_chargax(dev: torch.device, libs: dict) -> None:
+    env = ChargaxEnv(EnvConfig(fused_step=True), device=dev)
+    pp, dt = env.default_params.pole, env.config.dt_hours
+    b, p, nn = cs.NUM_ENVS, pp.member.shape[1], pp.member.shape[0]
+    slabs = cs.random_slabs(env, b, seed=b)
+    cap = torch.full((b,), 1e9, device=dev)
+    copies = [(PoleSlabs(*(x.clone() for x in slabs)), pp, dt, cap.clone()) for _ in range(8)]
+    bound_ms = cs.chargax_bound(b, p, nn)[0]
+    for name, lib in libs.items():
+        if hasattr(lib, "chargax_step_occupancy"):
+            cg_ops._library = lambda lib=lib: lib
+            per_sm, blocks = cg_ops.blocks_per_sm(b, p, nn)
+            print(f"{name}: {per_sm} blocks per SM, {blocks} blocks at B={b}")
+    # floors of the same timing: an empty launch, and one copy_ moving the
+    # kernel's bytes (half of them read, half written)
+    flat = [torch.empty(cs.chargax_bound(b, p, nn)[2] // 8, device=dev) for _ in range(16)]
+    empty_ms = cs.time_ms(torch.cuda._sleep, [(0,)])
+    copy_ms = cs.time_ms(torch.Tensor.copy_, list(zip(flat[::2], flat[1::2])))
+    print(f"floors: empty launch {empty_ms:.5f} ms; copy_ of the same bytes {copy_ms:.5f} ms")
+    for rnd in range(2):
+        for name, lib in libs.items():
+            run = chargax_runner(lib, dev)
+            ms = cs.time_ms(run, copies)
+            warm_ms = cs.time_ms(run, copies[:1])
+            print(f"round {rnd} {name}: {ms:.5f} ms, inputs in L2 {warm_ms:.5f} ms, "
+                  f"{bound_ms / ms:.4f} of bound ({bound_ms / warm_ms:.4f} in L2)")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernel", choices=sorted(OPS), default="flash")
@@ -225,6 +324,7 @@ def main() -> int:
     ops = OPS[args.kernel]
     sweep, time_all = {
         "flash": (flash_sweep, time_flash), "ssd": (ssd_sweep, time_ssd), "wkv": (wkv_sweep, time_wkv),
+        "chargax": (chargax_sweep, time_chargax),
     }[args.kernel]
     for name, lib in libs.items():
         ops._library = lambda lib=lib: lib

@@ -20,8 +20,10 @@ Three granularities:
   :func:`repro_torch.core.transition.charge_bookkeeping`.
 
 The battery is pole index ``n_evse`` (the paper's (N+1)-th pole).  Poles are
-not padded: P = n_evse + 1 <= 32 and Nn <= 32, the limits of the kernel's
-one-warp-per-env design.
+not padded: P = n_evse + 1 and Nn are the station's own.  The kernel keeps a
+block's tiles in shared memory, which bounds them: P <= ``MAX_POLES`` and
+Nn <= ``MAX_NODES`` (a padded fleet station of 40 EVSEs and 36 nodes is
+P = 41, Nn = 36).
 """
 from __future__ import annotations
 
@@ -29,7 +31,6 @@ import ctypes
 import functools
 from pathlib import Path
 
-import numpy as np
 import torch
 
 from repro_torch.core.state import EnvParams, EnvState
@@ -52,8 +53,10 @@ from repro_torch.kernels.chargax_step.ref import (
 Tensor = torch.Tensor
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "chargax_step.cu"
-MAX_POLES = 32  # one warp per env, lane = pole
-MAX_NODES = 32
+# what a block's shared memory holds with its 32 envs (200,192 bytes at
+# these maxima, of the 227 KB an H100 block may take)
+MAX_POLES = 128
+MAX_NODES = 64
 
 
 def build_kernel() -> tuple[Path, str]:
@@ -62,9 +65,8 @@ def build_kernel() -> tuple[Path, str]:
     return build(SOURCE, "chargax_step")
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    path, _ = build_kernel()
+def bind(path: Path) -> ctypes.CDLL:
+    """Load a built library and declare ``chargax_step_launch``'s C types."""
     lib = ctypes.CDLL(str(path))
     fn = lib.chargax_step_launch
     fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
@@ -72,10 +74,31 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _launch(slabs: PoleSlabs, pp: PoleParams, dt_hours: float, cap: Tensor) -> FusedOut:
+@functools.cache
+def _library() -> ctypes.CDLL:
+    path, _ = build_kernel()
+    return bind(path)
+
+
+def blocks_per_sm(b: int, p: int, nn: int) -> tuple[int, int]:
+    """For B envs of P poles and Nn nodes: the blocks of the kernel one SM
+    holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the
+    blocks its grid has.  Needs a card."""
+    fn = _library().chargax_step_occupancy
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    per_sm, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    err = fn(b, p, nn, ctypes.byref(per_sm), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"chargax_step occupancy query failed with CUDA error {err}")
+    return per_sm.value, blocks.value
+
+
+def _check(slabs: PoleSlabs, pp: PoleParams, cap: Tensor) -> None:
+    """Raise ``ValueError`` on inputs the kernel does not take."""
     dev = slabs.target.device
     b, p = slabs.target.shape
-    nn = pp.member_bits.shape[0]
+    nn = pp.member.shape[0]
     if p > MAX_POLES or nn > MAX_NODES:
         raise ValueError(
             f"chargax_step kernel takes at most {MAX_POLES} poles and {MAX_NODES} "
@@ -87,14 +110,26 @@ def _launch(slabs: PoleSlabs, pp: PoleParams, dt_hours: float, cap: Tensor) -> F
     check_tensor("cap_kw", cap, dev, f32, (b,))
     for name in ("voltage", "imax", "eff", "power_w"):
         check_tensor(name, getattr(pp, name), dev, f32, (p,))
-    check_tensor("member_bits", pp.member_bits, dev, torch.int32, (nn,))
+    check_tensor("member", pp.member, dev, f32, (nn, p))
     check_tensor("node_budget", pp.node_budget, dev, f32, (nn,))
 
-    outs = [torch.empty((b, p), device=dev, dtype=f32) for _ in range(5)]
-    outs += [torch.empty((b,), device=dev, dtype=f32) for _ in range(2)]
+
+def _aligned(x: Tensor) -> Tensor:
+    """``x``, or a copy of it if its data does not start on a 16-byte
+    boundary: the kernel's bulk copies move 16-byte aligned tiles."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _launch(slabs: PoleSlabs, pp: PoleParams, dt_hours: float, cap: Tensor) -> FusedOut:
+    _check(slabs, pp, cap)
+    dev = slabs.target.device
+    b, p = slabs.target.shape
+    nn = pp.member.shape[0]
+    outs = [torch.empty((b, p), device=dev, dtype=torch.float32) for _ in range(5)]
+    outs += [torch.empty((b,), device=dev, dtype=torch.float32) for _ in range(2)]
     if b == 0:
         return FusedOut(*outs)
-    ins = [*slabs, cap, pp.voltage, pp.imax, pp.eff, pp.power_w, pp.member_bits, pp.node_budget]
+    ins = [*map(_aligned, slabs), cap, pp.voltage, pp.imax, pp.eff, pp.power_w, pp.member, pp.node_budget]
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -147,20 +182,16 @@ def build_pole_params(params: EnvParams) -> PoleParams:
     def one(x: Tensor) -> Tensor:
         return x.reshape(1)
 
-    member = params.member  # (Nn, n + 1): the battery column is already there
-    bits = (member.cpu().numpy() > 0).astype(np.uint64) << np.arange(n + 1, dtype=np.uint64)
-    member_bits = bits.sum(axis=1).astype(np.uint32).view(np.int32)
     return PoleParams(
         voltage=torch.cat([params.evse_voltage, one(params.batt_voltage)]),
         imax=torch.cat([params.evse_max_current, one(params.batt_max_current)]),
         eff=torch.cat([torch.ones(n, device=dev), one(params.batt_eff)]),
-        member=member,
+        member=params.member,  # (Nn, n + 1): the battery column is already there
         node_budget=params.node_budget,
         # grid-side watts per charging amp (requested_power_kw's per-pole factor)
         power_w=torch.cat(
             [params.evse_voltage / params.evse_path_eff.clamp_min(1e-9), one(params.batt_voltage)]
         ),
-        member_bits=torch.from_numpy(member_bits).to(dev),
     )
 
 

@@ -45,8 +45,6 @@ class PoleParams(NamedTuple):
     power_w: Tensor  # (P,) grid-side watts per charging amp:
     #     evse_voltage/path_eff for EVSE poles, batt_voltage for the battery,
     #     so p_req = sum(max(i,0) * power_w) / 1000 [kW]
-    member_bits: Tensor  # (Nn,) int32: bit p of row n set iff member[n, p] > 0
-    #     (the CUDA kernel's form of ``member``; P <= 32)
 
 
 class FusedOut(NamedTuple):

@@ -7,40 +7,70 @@ interpret mode and on its jnp ``ref``, sliced to the real poles (the JAX pack
 is padded to 128 lanes), at rtol 1e-4 / atol 2e-4 — the tolerance the JAX
 package holds its own Pallas kernel to (``tests/kernels/test_chargax_step.py``).
 
-The CUDA kernel cannot run here: its case is marked ``cuda`` and skips
-without a card.
+The kernel's order of operations is emulated here in plain PyTorch
+(``_kernel_order``): the per-pole reciprocals, the Eq. 5 loads summed over
+member poles in pole order, p_req summed per env in pole order, and the two
+fast divisions (``__fdividef``, within 2 ulp of IEEE) taken 2 ulp off.  That
+emulation is held to ``fused_step_ref`` at the same tolerance, over the
+bundled layouts and a padded fleet station of 41 poles and 36 nodes.
+
+The CUDA kernel cannot run here: its cases are marked ``cuda`` and skip
+without a card.  They build their inputs from the port alone (numpy and a
+seed), and JAX is imported only by the tests that compare with it, so the
+``cuda`` cases also run where JAX is not installed.
 """
 from __future__ import annotations
 
 import functools
+import types
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.kernels.chargax_step import ops as jax_ops
+from repro_torch.core import ChargaxEnv, EnvConfig
 from repro_torch.kernels.chargax_step import ops
 from repro_torch.kernels.chargax_step.ref import BIG, FusedOut, PoleSlabs, fused_step_ref
-from test_torch_transition import env_pair, jax_state, random_state_fields, torch_state
 
 TOL = dict(rtol=1e-4, atol=2e-4)
 LAYOUTS = ("paper_16", "deep_4x4", "kiosk_ac_4")
+# the bundled layouts, and paper_16 padded as a fleet pads it: 40 EVSEs and
+# the battery (P = 41) under 36 nodes
+CONFIGS = {
+    **{name: dict(architecture=name) for name in LAYOUTS},
+    "padded_41x36": dict(pad_evse=40, pad_nodes=36),
+}
+DT = 5 / 60
+
+
+@functools.cache
+def _jax():
+    """jax and the JAX-side helpers, imported when a test needs them: the
+    CUDA cases also run where JAX is not installed."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    import test_torch_transition as tt
+    from repro.kernels.chargax_step import ops as jax_ops
+
+    return types.SimpleNamespace(jax=jax, jnp=jnp, ops=jax_ops, tt=tt)
 
 
 @functools.cache
 def _jax_fused_step(impl: str):
-    jenv, _ = env_pair()
-    dt = jenv.config.dt_hours
-    fn = functools.partial(jax_ops.fused_step, dt_hours=dt, impl=impl, block_envs=64)
-    return jax.jit(lambda p, s, te, tb, cap: fn(p, s, te, tb, cap_kw=cap))
+    j = _jax()
+    jenv, _ = j.tt.env_pair()
+    fn = functools.partial(
+        j.ops.fused_step, dt_hours=jenv.config.dt_hours, impl=impl, block_envs=64
+    )
+    return j.jax.jit(lambda p, s, te, tb, cap: fn(p, s, te, tb, cap_kw=cap))
 
 
 def _inputs(b: int, seed: int, architecture: str = "paper_16"):
-    jenv, tenv = env_pair(architecture)
+    tt = _jax().tt
+    jenv, tenv = tt.env_pair(architecture)
     rng = np.random.default_rng(seed)
-    fields = random_state_fields(rng, jenv, b)
+    fields = tt.random_state_fields(rng, jenv, b)
     params = jenv.default_params
     n = jenv.n_evse
     te = (rng.uniform(-1, 1, (b, n)) * np.asarray(params.evse_max_current)).astype(np.float32)
@@ -48,18 +78,118 @@ def _inputs(b: int, seed: int, architecture: str = "paper_16"):
     return jenv, tenv, fields, te, tb
 
 
+@functools.cache
+def _env(config: str) -> ChargaxEnv:
+    return ChargaxEnv(EnvConfig(fused_step=True, **CONFIGS[config]), device="cpu")
+
+
+def _random_slabs(env: ChargaxEnv, b: int, seed: int) -> PoleSlabs:
+    """Random (B, P) pole slabs on the CPU: EVSE poles, then the battery pole
+    with its unbounded request."""
+    rng = np.random.default_rng(seed)
+    p = env.default_params
+    n = env.n_evse
+    imax = np.append(p.evse_max_current.numpy(), float(p.batt_max_current))
+    occ = (rng.random((b, n + 1)) < 0.7).astype(np.float32)
+    occ[:, n] = 1.0
+    e_remain = rng.uniform(0.0, 40.0, (b, n + 1)) * (rng.random((b, n + 1)) < 0.9)
+    e_remain[:, n] = BIG
+    cap = 40.0 + 60.0 * rng.random((b, n + 1))
+    cap[:, n] = float(p.batt_capacity)
+    rbar = 50.0 + 250.0 * rng.random((b, n + 1))
+    rbar[:, n] = float(p.batt_max_current)
+    tau = 0.6 + 0.3 * rng.random((b, n + 1))
+    tau[:, n] = float(p.batt_tau)
+    cols = dict(
+        target=rng.uniform(-1.0, 1.0, (b, n + 1)) * imax,
+        occupied=occ,
+        soc=rng.uniform(0.02, 0.98, (b, n + 1)),
+        e_remain=e_remain,
+        cap=cap,
+        rbar=rbar,
+        tau=tau,
+    )
+    return PoleSlabs(**{k: torch.from_numpy(v.astype(np.float32)) for k, v in cols.items()})
+
+
+def _binding_cap(slabs: PoleSlabs, pp) -> torch.Tensor:
+    """Half of each env's requested power: binds wherever an env draws."""
+    return 0.5 * fused_step_ref(slabs, pp, DT).p_req.clamp_min(1.0)
+
+
+def _two_ulps_up(x: torch.Tensor) -> torch.Tensor:
+    """``x`` two float32 steps towards +inf: the most ``__fdividef`` may be
+    off an IEEE division in the kernel's range."""
+    up = torch.full_like(x, float("inf"))
+    return torch.nextafter(torch.nextafter(x, up), up)
+
+
+def _kernel_order(slabs: PoleSlabs, pp, dt_hours: float, cap: torch.Tensor) -> FusedOut:
+    """The CUDA kernel's arithmetic, operation for operation, in float32; its
+    two fast divisions as IEEE divisions taken 2 ulp up."""
+    s, er, cp, rb, ta = slabs.soc, slabs.e_remain, slabs.cap, slabs.rbar, slabs.tau
+    occ = slabs.occupied
+    dt = torch.tensor(dt_hours, dtype=torch.float32)  # the kernel takes dt as a float
+    # per-pole constants, staged once per block
+    amp_per_kwh = 1000.0 / (pp.voltage * dt).clamp_min(1e-9)
+    inv_eff = 1.0 / pp.eff.clamp_min(1e-9)
+    kwh_per_amp = pp.voltage * dt / 1000.0
+    # per-pole bounds and clip, one reciprocal of (1 - tau) per item
+    inv_tau = _two_ulps_up(1.0 / (1.0 - ta).clamp_min(1e-6))
+    sd = 1.0 - s
+    rhat_chg = torch.where(s <= ta, rb, rb * (1.0 - s) * inv_tau)
+    rhat_dis = torch.where(sd <= ta, rb, rb * (1.0 - sd) * inv_tau)
+    amp_req = er * amp_per_kwh
+    amp_soc = (1.0 - s) * cp * amp_per_kwh * inv_eff
+    amp_dis = s * cp * pp.eff * amp_per_kwh
+    up = torch.minimum(torch.minimum(rhat_chg, pp.imax), torch.minimum(amp_req, amp_soc))
+    down = -torch.minimum(torch.minimum(rhat_dis, pp.imax), amp_dis)
+    i = torch.minimum(torch.maximum(slabs.target, down), up.clamp_min(0.0)) * occ
+    # Eq. 5: each (env, node) sums its member poles in pole order
+    mag = i.abs()
+    load = torch.zeros(i.shape[0], pp.member.shape[0])
+    for p in range(i.shape[1]):
+        load = load + pp.member[:, p] * mag[:, p : p + 1]
+    s_node = torch.clamp(pp.node_budget / load.clamp_min(1e-9), max=1.0)
+    over = (load - pp.node_budget).clamp_min(0.0)
+    scale = torch.ones_like(i)
+    for n in range(pp.member.shape[0]):
+        scale = torch.where(pp.member[n] > 0, torch.minimum(scale, s_node[:, n : n + 1]), scale)
+    i = i * scale
+    # feeder envelope: p_req summed per env in pole order
+    w = i.clamp_min(0.0) * pp.power_w
+    total = torch.zeros(i.shape[0])
+    for p in range(i.shape[1]):
+        total = total + w[:, p]
+    p_req = total / 1000.0
+    excess = torch.zeros(i.shape[0])
+    for n in range(pp.member.shape[0]):
+        excess = torch.maximum(excess, over[:, n])
+    gscale = torch.clamp(cap / p_req.clamp_min(1e-9), max=1.0)
+    i = torch.where(i > 0.0, i * gscale[:, None], i)
+    # integrate over dt
+    e = i * kwh_per_amp
+    soc_delta = torch.where(e >= 0.0, e * pp.eff, e * inv_eff)
+    soc_new = torch.clamp(s + _two_ulps_up(soc_delta / cp.clamp_min(1e-6)), 0.0, 1.0)
+    headroom = torch.where(er >= 0.5 * BIG, BIG, (1.0 - soc_new) * cp)
+    er_new = torch.minimum((er - e).clamp_min(0.0), headroom)
+    rhat = torch.where(soc_new <= ta, rb, rb * (1.0 - soc_new) * inv_tau) * occ
+    return FusedOut(i, soc_new, er_new, rhat, e, excess, p_req)
+
+
 @pytest.mark.parametrize("finite_cap", [True, False], ids=["cap", "unlimited"])
 @pytest.mark.parametrize("batch", [1, 64, 300])
 @pytest.mark.parametrize("impl", ["interpret", "ref"])
 def test_fused_step_matches_jax(impl, batch, finite_cap):
+    j = _jax()
     jenv, tenv, fields, te, tb = _inputs(batch, seed=batch)
     cap = np.full(batch, 60.0 if finite_cap else BIG, np.float32)
     want = _jax_fused_step(impl)(
-        jenv.default_params, jax_state(fields), te, tb, jnp.asarray(cap)
+        jenv.default_params, j.tt.jax_state(fields), te, tb, j.jnp.asarray(cap)
     )
     got = ops.fused_step(
         tenv.default_params,
-        torch_state(fields),
+        j.tt.torch_state(fields),
         torch.from_numpy(te),
         torch.from_numpy(tb),
         jenv.config.dt_hours,
@@ -77,44 +207,62 @@ def test_fused_step_matches_jax(impl, batch, finite_cap):
 
 @pytest.mark.parametrize("architecture", LAYOUTS + ("single_ac_16", "mixed_8_8"))
 def test_pole_pack_is_the_unpadded_jax_pack(architecture):
-    jenv, tenv = env_pair(architecture)
-    jp = jax_ops.build_pole_params(jenv.default_params)
+    j = _jax()
+    jenv, tenv = j.tt.env_pair(architecture)
+    jp = j.ops.build_pole_params(jenv.default_params)
     tp = ops.build_pole_params(tenv.default_params)
     p, nn = tenv.n_evse + 1, tenv.default_params.member.shape[0]
     for name in ("voltage", "imax", "eff", "power_w"):
         np.testing.assert_array_equal(getattr(tp, name).numpy(), np.asarray(getattr(jp, name))[:p])
     np.testing.assert_array_equal(tp.member.numpy(), np.asarray(jp.member)[:nn, :p])
     np.testing.assert_array_equal(tp.node_budget.numpy(), np.asarray(jp.node_budget)[:nn])
-    bits = tp.member_bits.numpy().view(np.uint32)
-    for row, mask in zip(tp.member.numpy(), bits):
-        assert [bool(mask >> j & 1) for j in range(p)] == list(row > 0)
+    # the kernel reads membership as this (Nn, P) float32 0/1 matrix
+    assert tp.member.dtype == torch.float32 and tp.member.is_contiguous()
+    assert set(np.unique(tp.member.numpy())) <= {0.0, 1.0}
+
+
+@pytest.mark.parametrize("finite_cap", [True, False], ids=["cap", "unlimited"])
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_kernel_arithmetic_emulation_stays_within_tolerance(config, finite_cap):
+    env = _env(config)
+    pp = env.default_params.pole
+    slabs = _random_slabs(env, 300, seed=7)
+    cap = _binding_cap(slabs, pp) if finite_cap else None
+    want = fused_step_ref(slabs, pp, DT, cap)
+    got = _kernel_order(slabs, pp, DT, torch.full((300,), BIG) if cap is None else cap)
+    for name, g, w in zip(FusedOut._fields, got, want):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w.numpy(), err_msg=name, **TOL)
+    if finite_cap:
+        assert bool((want.p_req > cap).any())  # the cap binds somewhere
+    # the emulation takes other roundings than the plain version somewhere
+    assert any(not torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_cpu_tensors_run_the_plain_version_without_a_launch():
+    tt = _jax().tt
     _, tenv, fields, te, tb = _inputs(16, seed=3)
     params = tenv.default_params
     before = ops.chargax_step.launches
     got = ops.fused_step(
-        params, torch_state(fields), torch.from_numpy(te), torch.from_numpy(tb), 5 / 60
+        params, tt.torch_state(fields), torch.from_numpy(te), torch.from_numpy(tb), DT
     )
-    slabs = ops.build_slabs(params, torch_state(fields), torch.from_numpy(te), torch.from_numpy(tb))
-    want = fused_step_ref(slabs, ops.build_pole_params(params), 5 / 60)
+    slabs = ops.build_slabs(params, tt.torch_state(fields), torch.from_numpy(te), torch.from_numpy(tb))
+    want = fused_step_ref(slabs, ops.build_pole_params(params), DT)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
     assert ops.chargax_step.launches == before
     # an unlimited cap of BIG is the no-cap path, bit for bit
-    big = fused_step_ref(slabs, ops.build_pole_params(params), 5 / 60, torch.full((16,), BIG))
+    big = fused_step_ref(slabs, ops.build_pole_params(params), DT, torch.full((16,), BIG))
     for g, w in zip(big, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
 def test_wrapper_refuses_other_devices():
-    _, tenv, fields, te, tb = _inputs(2, seed=4)
-    params = tenv.default_params
-    slabs = ops.build_slabs(params, torch_state(fields), torch.from_numpy(te), torch.from_numpy(tb))
-    meta = PoleSlabs(*(x.to("meta") for x in slabs))
+    env = _env("paper_16")
+    meta = PoleSlabs(*(x.to("meta") for x in _random_slabs(env, 2, seed=4)))
     with pytest.raises(ValueError, match="cuda or cpu"):
-        ops.chargax_step(meta, ops.build_pole_params(params), 5 / 60)
+        ops.chargax_step(meta, env.default_params.pole, DT)
 
 
 def _slabs_and_pole(b: int, p: int, nn: int, dtype=torch.float32):
@@ -122,50 +270,137 @@ def _slabs_and_pole(b: int, p: int, nn: int, dtype=torch.float32):
     pp = ops.PoleParams(
         voltage=torch.ones(p), imax=torch.ones(p), eff=torch.ones(p),
         member=torch.ones((nn, p)), node_budget=torch.ones(nn), power_w=torch.ones(p),
-        member_bits=torch.zeros(nn, dtype=torch.int32),
     )
     return slabs, pp, torch.ones(b)
 
 
-@pytest.mark.parametrize("p, nn", [(33, 3), (17, 33)])
+@pytest.mark.parametrize("p, nn", [(ops.MAX_POLES + 1, 3), (17, ops.MAX_NODES + 1)])
 def test_kernel_wrapper_refuses_more_than_32_poles_or_nodes(p, nn):
+    """The wrapper refuses P > MAX_POLES or Nn > MAX_NODES before a launch
+    (the name keeps the limit of 32 of the kernel's first, one-warp-per-env
+    design)."""
     slabs, pp, cap = _slabs_and_pole(4, p, nn)
-    with pytest.raises(ValueError, match="at most 32 poles and 32 nodes"):
-        ops._launch(slabs, pp, 5 / 60, cap)
+    limit = f"at most {ops.MAX_POLES} poles and {ops.MAX_NODES} nodes"
+    with pytest.raises(ValueError, match=limit):
+        ops._launch(slabs, pp, DT, cap)
+
+
+@pytest.mark.parametrize("p, nn", [(41, 36), (ops.MAX_POLES, ops.MAX_NODES)])
+def test_kernel_wrapper_takes_padded_fleet_stations(p, nn):
+    assert ops.MAX_POLES >= 41 and ops.MAX_NODES >= 36  # pad_evse=40, pad_nodes=36
+    slabs, pp, cap = _slabs_and_pole(4, p, nn)
+    ops._check(slabs, pp, cap)  # raises on what the kernel does not take
+
+
+def test_kernel_wrapper_copies_only_misaligned_slabs():
+    buf = torch.arange(4 * 17 + 4, dtype=torch.float32)
+    aligned = buf[: 4 * 17].view(4, 17)
+    assert ops._aligned(aligned) is aligned
+    for offset in (1, 2, 3):  # 4, 8 and 12 bytes off a 16-byte boundary
+        view = buf[offset : offset + 4 * 17].view(4, 17)
+        got = ops._aligned(view)
+        assert got.data_ptr() % 16 == 0 and got.data_ptr() != view.data_ptr()
+        torch.testing.assert_close(got, view, rtol=0, atol=0)
 
 
 def test_kernel_wrapper_checks_dtype_and_shape_before_launch():
     slabs, pp, cap = _slabs_and_pole(4, 17, 3, dtype=torch.float64)
     with pytest.raises(ValueError, match="dtype"):
-        ops._launch(slabs, pp, 5 / 60, cap)
+        ops._launch(slabs, pp, DT, cap)
     slabs, pp, _ = _slabs_and_pole(4, 17, 3)
     with pytest.raises(ValueError, match="cap_kw has shape"):
-        ops._launch(slabs, pp, 5 / 60, torch.ones(5))
+        ops._launch(slabs, pp, DT, torch.ones(5))
+    with pytest.raises(ValueError, match="member has shape"):
+        ops._launch(slabs, pp._replace(member=torch.ones(3, 16)), DT, cap)
     before = ops.chargax_step.launches
     slabs = PoleSlabs(*(x.t().contiguous().t() for x in slabs))  # column-major
     with pytest.raises(ValueError, match="not contiguous"):
-        ops._launch(slabs, pp, 5 / 60, torch.ones(4))
+        ops._launch(slabs, pp, DT, torch.ones(4))
     assert ops.chargax_step.launches == before
 
 
+def _on_card(slabs: PoleSlabs, pp, cap):
+    dev = torch.device("cuda")
+    return (
+        PoleSlabs(*(x.to(dev) for x in slabs)),
+        type(pp)(*(x.to(dev) for x in pp)),
+        None if cap is None else cap.to(dev),
+    )
+
+
+def _assert_kernel_matches(slabs: PoleSlabs, pp, cap) -> None:
+    want = fused_step_ref(slabs, pp, DT, cap)
+    before = ops.chargax_step.launches
+    slabs_d, pp_d, cap_d = _on_card(slabs, pp, cap)
+    got = ops.chargax_step(slabs_d, pp_d, DT, cap_d)
+    torch.cuda.synchronize()
+    assert ops.chargax_step.launches == before + 1
+    for name, g, w in zip(FusedOut._fields, got, want):
+        assert torch.isfinite(g).all(), name
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), err_msg=name, **TOL)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("architecture", LAYOUTS)
-def test_cuda_kernel_matches_plain_version(architecture):
+@pytest.mark.parametrize("batch", [1, 300, 16384])
+@pytest.mark.parametrize("architecture", list(CONFIGS))
+def test_cuda_kernel_matches_plain_version(architecture, batch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the chargax_step kernel has no CPU mode")
-    _, tenv, fields, te, tb = _inputs(300, seed=5, architecture=architecture)
-    params = ops.build_pole_params(tenv.default_params)
-    slabs = ops.build_slabs(
-        tenv.default_params, torch_state(fields), torch.from_numpy(te), torch.from_numpy(tb)
+    env = _env(architecture)
+    pp = env.default_params.pole
+    slabs = _random_slabs(env, batch, seed=5)
+    for cap in (None, _binding_cap(slabs, pp)):
+        _assert_kernel_matches(slabs, pp, cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [64, 300])
+def test_cuda_kernel_at_the_largest_poles_and_nodes(batch):
+    """P = MAX_POLES, Nn = MAX_NODES with a random tree-like membership:
+    every pole under the root node, each also under a few others."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the chargax_step kernel has no CPU mode")
+    p, nn = ops.MAX_POLES, ops.MAX_NODES
+    rng = np.random.default_rng(11)
+    member = (rng.random((nn, p)) < 0.1).astype(np.float32)
+    member[0] = 1.0
+    env = _env("paper_16")
+    base = env.default_params.pole
+    reps = -(-p // base.voltage.shape[0])
+
+    def tile(x: torch.Tensor) -> torch.Tensor:
+        return x.repeat(reps)[:p].contiguous()
+
+    pp = base._replace(
+        voltage=tile(base.voltage), imax=tile(base.imax), eff=tile(base.eff),
+        power_w=tile(base.power_w), member=torch.from_numpy(member),
+        node_budget=torch.from_numpy(rng.uniform(100.0, 3000.0, nn).astype(np.float32)),
     )
+    small = _random_slabs(env, batch * reps, seed=batch)
+    slabs = PoleSlabs(*(x.reshape(batch, -1)[:, :p].contiguous() for x in small))
+    for cap in (None, _binding_cap(slabs, pp)):
+        _assert_kernel_matches(slabs, pp, cap)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_copies_misaligned_slabs_and_runs_in_one_wave():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the chargax_step kernel has no CPU mode")
+    env = _env("paper_16")
+    pp = env.default_params.pole
+    slabs = _random_slabs(env, 300, seed=6)
+    want = fused_step_ref(slabs, pp, DT)
     dev = torch.device("cuda")
-    pp_d = type(params)(*(x.to(dev) for x in params))
-    slabs_d = PoleSlabs(*(x.to(dev) for x in slabs))
-    for cap in (None, torch.full((300,), 60.0)):
-        want = fused_step_ref(slabs, params, 5 / 60, cap)
-        before = ops.chargax_step.launches
-        got = ops.chargax_step(slabs_d, pp_d, 5 / 60, None if cap is None else cap.to(dev))
-        torch.cuda.synchronize()
-        assert ops.chargax_step.launches == before + 1
-        for name, g, w in zip(FusedOut._fields, got, want):
-            np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), err_msg=name, **TOL)
+    views = []
+    for x in slabs:  # each slab 4 bytes off a 16-byte boundary
+        buf = torch.empty(x.numel() + 1, device=dev)
+        buf[1:] = x.flatten().to(dev)
+        views.append(buf[1:].view(x.shape))
+    assert all(v.data_ptr() % 16 == 4 for v in views)
+    got = ops.chargax_step(PoleSlabs(*views), _on_card(slabs, pp, None)[1], DT)
+    torch.cuda.synchronize()
+    for name, g, w in zip(FusedOut._fields, got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), err_msg=name, **TOL)
+    per_sm, blocks = ops.blocks_per_sm(16384, 17, 3)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert blocks <= per_sm * sms, (per_sm, sms, blocks)
