@@ -83,12 +83,42 @@ Phases, in order (any failure raises and the script exits non-zero):
    instructions (HMMA, HGMMA) in the built library's SASS (none fails);
 18. profile: one rwkv6-3b prefill and 8 decode steps at batch 4 under
    ``torch.profiler``: device busy ms per call, idle share, kernels, top
-   kernels.
+   kernels; then the rwkv6 model is freed;
+19. PPO, card against CPU: one ``make_train`` update (paper_16, fused step,
+   64 envs x 300 steps, which crosses the episode end at step 288, 4
+   minibatches x 4 epochs, Table 3) on the card and on the CPU from the same
+   weights (``ActorCritic(seed=0)``) and the same injected draws (Gumbel
+   noise, arrivals, resets, permutations) made once on the CPU.  The
+   rollouts are held env by env: at most 8 of the 64 envs may leave the
+   CPU's trajectory (a float threshold such as a departure at the target SoC
+   falls the other way), every other env agrees at every step (obs, value,
+   reward, log-prob within rtol 1e-4 / atol 1e-3, actions and done equal).
+   The card's epochs then learn from the CPU's trajectory: GAE and every
+   metric over the envs that stayed within rtol 1e-4 / atol 1e-4, the
+   update of every weight within atol 2e-6 + rtol 1e-3 but for at most 8
+   elements, each within 2 lr x steps (the CPU test's rule,
+   tests/test_torch_ppo.py);
+20. PPO training at full width: paper_16, fused step, 16384 envs x 300
+   steps, 4 minibatches x 4 epochs, hidden (128, 128), Table 3, fp32 with
+   TF32 off, N = 8 updates from seed 0, driven through ``make_train``'s
+   parts with CUDA events between them: exactly 300 N ``chargax_step``
+   launches and no other kernel of ours, rollout / GAE / update ms and the
+   rollout reward of each update, training env-steps/s and peak memory; the
+   last quarter's mean rollout reward must exceed the first quarter's, and
+   the trained greedy policy must beat ``random_policy`` over one
+   16384-env episode under the same seed (``max_charge_policy`` beside);
+21. profile: one more rollout, GAE and minibatch update under
+   ``torch.profiler``: device busy ms and idle share of each against phase
+   20's unprofiled medians, kernels per rollout step and per minibatch step,
+   top kernels; then what AutoReset adds to a step: 20 env steps alone and
+   20 AutoReset steps (a reset of every env and the selects), host ms,
+   device busy ms and kernels per step of each.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and before that a ``{"kernels": [...]}``
-line with all four kernels.  Needs the repository's ``src/`` beside this
-file.  Every path runs at its full depth.
+line with all four kernels (``chargax_step``'s launches summed over the
+episode of phase 4 and the training of phase 20).  Needs the repository's
+``src/`` beside this file.  Every path runs at its full depth.
 """
 from __future__ import annotations
 
@@ -115,6 +145,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs.registry import build_model, get_config  # noqa: E402
 from repro_torch.core import ChargaxEnv, EnvConfig, sampling  # noqa: E402
 from repro_torch.distributed.train_step import make_prefill_step, make_serve_step  # noqa: E402
+from repro_torch.envs import AutoReset  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.chargax_step import ops  # noqa: E402
 from repro_torch.kernels.chargax_step.ref import BIG, PoleSlabs, fused_step_ref  # noqa: E402
@@ -125,8 +156,20 @@ from repro_torch.kernels.mamba2_ssd.ref import ssd_chunked  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv.ref import wkv_chunked  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
-from repro_torch.rl import evaluate, make_ppo_policy, max_charge_policy, serve  # noqa: E402
+from repro_torch.rl import (  # noqa: E402
+    PPOConfig,
+    evaluate,
+    make_ppo_policy,
+    make_train,
+    max_charge_policy,
+    networks,
+    random_policy,
+    serve,
+)
 from repro_torch.rl.networks import ActorCritic  # noqa: E402
+from repro_torch.obs import MetricsAccumulator  # noqa: E402
+from repro_torch.rl.ppo import ReplayDraws, StepDraws, Transition  # noqa: E402
+from repro_torch.utils import replace  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, float32 (non-tensor-core)
 # rate, dense bf16 tensor-core rate
@@ -179,6 +222,17 @@ WKV_SHAPES = [(1, 128, 2, 64, 64), (2, 200, 3, 32, 32), (1, 256, 2, 64, 128), (2
 WKV_TOL = {torch.float32: dict(rtol=3e-4, atol=3e-4), torch.bfloat16: dict(rtol=2**-7, atol=1e-3)}
 PREFILL_B, PREFILL_L = 4, 4096
 DECODE_B, PROMPT_LEN, NEW_TOKENS = 4, 16, 32  # the JAX launch/serve.py defaults
+# PPO (phases 19-21): the paper's rollout, minibatches and epochs (Table 3);
+# 64 envs for the card-vs-CPU update, 16384 for training, PPO_UPDATES updates
+PPO_SHAPE = dict(rollout_steps=300, num_minibatches=4, update_epochs=4)
+PPO_CHECK_ENVS = 64
+PPO_UPDATES = 8
+PPO_METRIC_TOL = dict(rtol=1e-4, atol=1e-4)  # tests/test_torch_ppo.py METRIC_TOL
+PPO_UPDATE_TOL = dict(rtol=1e-3, atol=2e-6)  # tests/test_torch_ppo.py UPDATE_TOL
+PPO_HANDFUL = 8  # tests/test_torch_ppo.py HANDFUL
+# envs of PPO_CHECK_ENVS that may leave the CPU's rollout (3 of 64 did on an
+# H100; a fault in a step or the policy moves every env)
+PPO_ENVS_OFF = 8
 
 
 def check(cond: bool, msg: str) -> None:
@@ -728,13 +782,16 @@ def lm_kernel_times(dev: torch.device, ssd_lib: Path) -> dict[str, dict]:
     return out
 
 
-def profile_device(fn, calls: int, unprofiled_ms: float) -> dict:
+def profile_device(fn, calls: int, unprofiled_ms: float, cpu_ops: bool = True) -> dict:
     """Where the device time of ``calls`` calls of ``fn`` goes, per call:
     device busy ms, its idle share of ``unprofiled_ms`` (one call's time
-    without the profiler), device kernels and the kernels that take most."""
+    without the profiler), device kernels and the kernels that take most.
+    ``cpu_ops=False`` records the device's activity alone, which keeps a
+    profile of ~10^5 launches short."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * cpu_ops + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -914,6 +971,295 @@ def chargax_kernel_time(dev: torch.device, slabs: PoleSlabs, pp, dt: float) -> t
     return kernel_ms, plain_ms, warm_ms, bound_ms, bound_by
 
 
+def ppo_replay_draws(env: ChargaxEnv, cfg: PPOConfig, gen: torch.Generator) -> ReplayDraws:
+    """Every draw of a ``make_train`` run made up front from ``gen`` (on the
+    env's device).  All envs start at t = 0 and a paper_16 episode has a
+    fixed length, so each step's t and day (what the arrival draws depend
+    on) follow from the step's index and the resets."""
+    params = env.default_params
+    b, ep = cfg.num_envs, env.config.episode_steps
+    shape = (b, env.num_action_heads, env.num_actions_per_head)
+    first = sampling.draw_reset(params, b, gen)
+    _, state = env.reset(first)
+    day, steps = first.day, []
+    for s in range(cfg.num_updates * cfg.rollout_steps):
+        t = torch.full((b,), s % ep, dtype=torch.int32, device=env.device)
+        gumbel = networks.gumbel_noise(shape, gen, env.device)
+        arrivals = sampling.draw_arrivals(params, replace(state, t=t, day=day), gen)
+        reset = sampling.draw_reset(params, b, gen)
+        steps.append(StepDraws(gumbel, arrivals, reset))
+        if s % ep == ep - 1:
+            day = reset.day
+    perms = [
+        torch.randperm(cfg.batch_size, generator=gen, device=env.device)
+        for _ in range(cfg.num_updates * cfg.update_epochs)
+    ]
+    return ReplayDraws(first, steps, perms)
+
+
+def _ppo_envs(x, keep: torch.Tensor):
+    """The envs ``keep`` of a trajectory (T, B, ...) or LogState (B, ...)."""
+    if isinstance(x, Transition):
+        return Transition(
+            *(v[:, keep] for v in x[:-1]), info={k: v[:, keep] for k, v in x.info.items()}
+        )
+    acc = x.metrics
+    acc = MetricsAccumulator(
+        {k: v[keep] for k, v in acc.sums.items()},
+        {k: v[keep] for k, v in acc.maxes.items()},
+        acc.count[keep],
+    )
+    return x._replace(
+        returned_episode_return=x.returned_episode_return[keep],
+        returned_episode_length=x.returned_episode_length[keep],
+        metrics=acc,
+    )
+
+
+def ppo_card_vs_cpu(dev: torch.device) -> dict:
+    """Phase 19: one update on the card and on the CPU from the same weights
+    and draws.  Returns the largest errors.
+
+    The rollouts are held env by env: an env whose step ends on another
+    side of a float threshold on the card (a departure at its target SoC)
+    leaves the CPU's trajectory for good, so at most PPO_ENVS_OFF envs may
+    leave, and every other env agrees at every step.  The card's minibatch
+    epochs then learn from the CPU's trajectory, so the update is held on
+    the same data."""
+    steps = PPO_SHAPE["rollout_steps"]
+    cfg = PPOConfig(num_envs=PPO_CHECK_ENVS, total_timesteps=PPO_CHECK_ENVS * steps, **PPO_SHAPE)
+    cpu_env = ChargaxEnv(EnvConfig(fused_step=True), device="cpu")
+    card_env = ChargaxEnv(EnvConfig(fused_step=True), device=dev)
+    net0 = ActorCritic(
+        cpu_env.obs_dim, cpu_env.num_action_heads, cpu_env.num_actions_per_head, cfg.hidden, seed=0
+    )
+    draws = ppo_replay_draws(cpu_env, cfg, torch.Generator().manual_seed(0))
+    train_c = make_train(cfg, cpu_env, device="cpu")
+    train_d = make_train(cfg, card_env, device=dev)
+    t0 = time.perf_counter()
+    before_c = train_c.init(draws, net0)
+    rolled_c, traj_c = train_c.rollout(before_c)
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    before_d = train_d.init(draws, net0)
+    rolled_d, traj_d = train_d.rollout(before_d)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+
+    # (step, env) pairs where the card's rollout is the CPU's
+    same = (traj_d.action.cpu() == traj_c.action).all(-1) & (traj_d.done.cpu() == traj_c.done)
+    for name in ("obs", "value", "reward", "log_prob"):
+        g, w = getattr(traj_d, name).cpu(), getattr(traj_c, name)
+        close = torch.isclose(g, w, rtol=1e-4, atol=1e-3)
+        same &= close.reshape(steps, PPO_CHECK_ENVS, -1).all(-1)
+    off = ~same.all(0)
+    first_off = {int(e): int((~same[:, e]).nonzero()[0]) for e in off.nonzero().flatten()}
+    check(
+        len(first_off) <= PPO_ENVS_OFF,
+        f"ppo card vs cpu: {len(first_off)} of {PPO_CHECK_ENVS} envs leave the CPU's rollout {first_off}",
+    )
+    keep = ~off
+
+    # the minibatch epochs on the CPU's trajectory, on both devices
+    traj_cd = Transition(
+        *(v.to(dev) for v in traj_c[:-1]), info={k: v.to(dev) for k, v in traj_c.info.items()}
+    )
+    rolled_cd = rolled_d._replace(obs=rolled_c.obs.to(dev))
+    gae_c, targets_c = train_c.advantages(rolled_c, traj_c)
+    gae_d, targets_d = train_d.advantages(rolled_cd, traj_cd)
+    gae_err = float((gae_d.cpu() - gae_c).abs().max())
+    check(torch.allclose(gae_d.cpu(), gae_c, **PPO_METRIC_TOL), f"ppo card vs cpu gae: {gae_err}")
+    after_c, losses_c = train_c.learn(rolled_c, traj_c, gae_c, targets_c)
+    after_d, losses_d = train_d.learn(rolled_cd, traj_cd, gae_d, targets_d)
+
+    # every metric over the envs that stayed on the CPU's rollout
+    metrics_c = train_c.metrics(
+        before_c._replace(env_state=_ppo_envs(before_c.env_state, keep)),
+        after_c._replace(env_state=_ppo_envs(after_c.env_state, keep)),
+        _ppo_envs(traj_c, keep), losses_c,
+    )
+    keep_d = keep.to(dev)
+    metrics_d = train_d.metrics(
+        before_d._replace(env_state=_ppo_envs(before_d.env_state, keep_d)),
+        after_d._replace(env_state=_ppo_envs(after_d.env_state, keep_d)),
+        _ppo_envs(traj_d, keep_d), losses_d,
+    )
+    errs = {}
+    for k, want in metrics_c.items():
+        got = metrics_d[k].cpu()
+        check(bool(torch.isfinite(got)), f"ppo card metric {k} not finite")
+        errs[k] = float((got - want).abs())
+        check(torch.allclose(got, want, **PPO_METRIC_TOL), f"ppo card vs cpu {k}: {got} vs {want}")
+    check(float(metrics_c["episode_length"]) == 288.0, "the rollout did not end an episode")
+
+    init = dict(net0.named_parameters())
+    want_final = dict(after_c.params.named_parameters())
+    lr, n_steps = cfg.lr, cfg.update_epochs * cfg.num_minibatches
+    outside, worst = 0, 0.0
+    with torch.no_grad():
+        for name, p in after_d.params.named_parameters():
+            got = p.cpu() - init[name]
+            want = want_final[name] - init[name]
+            err = (got - want).abs()
+            outside += int((err > PPO_UPDATE_TOL["atol"] + PPO_UPDATE_TOL["rtol"] * want.abs()).sum())
+            worst = max(worst, float(err.max()))
+            check(bool((err <= 2 * lr * n_steps).all()), f"ppo card vs cpu: {name} moved apart")
+    check(outside <= PPO_HANDFUL, f"ppo card vs cpu: {outside} weights outside the tolerance")
+    print(
+        f"ppo card vs cpu: {PPO_CHECK_ENVS} envs x {steps} steps (rollout cpu {cpu_s:.2f} s, "
+        f"card {card_s:.2f} s); envs that left the CPU's rollout at step {first_off}; "
+        f"gae max abs err {gae_err:.3g}; largest metric errors over the other envs "
+        + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
+        + f"; update: {outside} elements outside atol 2e-6 + rtol 1e-3, largest error {worst:.3g}"
+    )
+    return {
+        "envs_off": len(first_off),
+        "metric_max_abs_err": max(errs.values()),
+        "update_max_abs_err": worst,
+        "outside": outside,
+    }
+
+
+def ppo_train(env: ChargaxEnv) -> tuple[dict, object, object]:
+    """Phase 20: PPO_UPDATES updates at 16384 envs through make_train's parts,
+    CUDA events between them.  Returns (summary, the trainer, its runner)."""
+    dev, steps = env.device, PPO_SHAPE["rollout_steps"]
+    cfg = PPOConfig(num_envs=NUM_ENVS, total_timesteps=PPO_UPDATES * NUM_ENVS * steps, **PPO_SHAPE)
+    check(cfg.num_updates == PPO_UPDATES, f"{cfg.num_updates} updates")
+    train = make_train(cfg, env, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(PPO_UPDATES)]
+    per_update = []
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    runner = train.init(gen)
+    for ev in marks:  # what PPOTrain.update runs, with events between the parts
+        ev[0].record()
+        after, traj = train.rollout(runner)
+        ev[1].record()
+        gae, targets = train.advantages(after, traj)
+        ev[2].record()
+        after, losses = train.learn(after, traj, gae, targets)
+        ev[3].record()
+        after = after._replace(update_idx=after.update_idx + 1)
+        per_update.append(train.metrics(runner, after, traj, losses))
+        runner = after
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    expected = {"chargax_step": steps * PPO_UPDATES, "flash_attention": 0, "mamba2_ssd": 0, "rwkv6_wkv": 0}
+    check(counts == expected, f"ppo launches {counts}, expected {expected}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    rollout_ms = [e[0].elapsed_time(e[1]) for e in marks]
+    gae_ms = [e[1].elapsed_time(e[2]) for e in marks]
+    update_ms = [e[2].elapsed_time(e[3]) for e in marks]
+    metrics = {k: torch.stack([m[k] for m in per_update]).tolist() for k in per_update[0]}
+    for k, v in metrics.items():
+        check(all(math.isfinite(x) for x in v), f"ppo metric {k} not finite: {v}")
+    rr = metrics["rollout_reward"]
+    for u in range(PPO_UPDATES):
+        print(
+            f"ppo update {u}: rollout {rollout_ms[u]:.1f} ms, gae {gae_ms[u]:.2f} ms, "
+            f"update {update_ms[u]:.1f} ms, rollout_reward {rr[u]:.3f}, "
+            f"loss {metrics['loss'][u]:.4f}, entropy {metrics['entropy'][u]:.4f}"
+        )
+    env_steps_per_s = cfg.total_timesteps / wall
+    q = max(PPO_UPDATES // 4, 1)
+    first_q, last_q = statistics.mean(rr[:q]), statistics.mean(rr[-q:])
+    print(
+        f"ppo training: {PPO_UPDATES} updates x {NUM_ENVS} envs x {steps} steps in {wall:.3f} s = "
+        f"{env_steps_per_s:.0f} env-steps/s, chargax_step launches {counts['chargax_step']}, "
+        f"peak memory {peak_gib:.3f} GiB; mean rollout reward, first quarter {first_q:.3f}, "
+        f"last quarter {last_q:.3f}"
+    )
+    check(last_q > first_q, f"ppo did not learn: last quarter {last_q} <= first quarter {first_q}")
+
+    evals = {}
+    for name, policy, params in (
+        ("ppo_greedy", make_ppo_policy(env, greedy=True), runner.params),
+        ("random", random_policy(env), None),
+        ("max_charge", max_charge_policy(env), None),
+    ):
+        evals[name] = evaluate(
+            env, policy, params, torch.Generator(device=dev).manual_seed(1),
+            num_episodes=NUM_ENVS, device=dev,
+        )
+    print(
+        f"ppo eval, one {NUM_ENVS}-env episode from seed 1: episode_reward "
+        + " ".join(f"{k}={v['episode_reward']:.3f}" for k, v in evals.items())
+    )
+    check(
+        evals["ppo_greedy"]["episode_reward"] > evals["random"]["episode_reward"],
+        "the trained policy does not beat random_policy",
+    )
+    summary = {
+        "num_envs": NUM_ENVS,
+        "rollout_steps": steps,
+        "updates": PPO_UPDATES,
+        "wall_s": wall,
+        "env_steps_per_s": env_steps_per_s,
+        "chargax_step_launches": counts["chargax_step"],
+        "peak_memory_gib": peak_gib,
+        "rollout_ms": rollout_ms,
+        "gae_ms": gae_ms,
+        "update_ms": update_ms,
+        "metrics": metrics,
+        "eval_episode_reward": {k: v["episode_reward"] for k, v in evals.items()},
+    }
+    return summary, train, runner
+
+
+def profile_ppo(train, runner, summary: dict) -> dict:
+    """Phase 21: one more rollout, GAE and minibatch update under the
+    profiler, each against phase 20's unprofiled median."""
+    cfg = train.config
+    box: dict = {}
+
+    def rollout():
+        box["after"], box["traj"] = train.rollout(runner)
+
+    def gae():
+        box["gae"] = train.advantages(box["after"], box["traj"])
+
+    def learn():
+        train.learn(box["after"], box["traj"], *box["gae"])
+
+    out = {}
+    for name, fn, unprofiled, units, unit in (
+        ("rollout", rollout, summary["rollout_ms"], cfg.rollout_steps, "env step"),
+        ("gae", gae, summary["gae_ms"], cfg.rollout_steps, "step"),
+        ("update", learn, summary["update_ms"], cfg.update_epochs * cfg.num_minibatches, "minibatch step"),
+    ):
+        prof = profile_device(fn, 1, statistics.median(unprofiled), cpu_ops=False)
+        prof["device_kernels_per_unit"] = prof["device_kernels_per_call"] / units
+        prof["unit"] = unit
+        out[name] = prof
+
+    # what AutoReset adds to a step: a reset of every env and the selects
+    env, params = train.env, train.env_params
+    state = runner.env_state.env_state
+    action = torch.zeros((cfg.num_envs, env.num_action_heads), dtype=torch.int32, device=env.device)
+    gen = torch.Generator(device=env.device).manual_seed(2)
+    calls = 20
+    for name, stepper in (("env_step", env), ("autoreset_step", AutoReset(env))):
+        def step():
+            stepper.step(gen, state, action, params)
+
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            step()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1000.0 / calls
+        prof = profile_device(step, calls, host_ms, cpu_ops=False)
+        del prof["top_kernels_ms_per_call"]
+        out[name] = prof
+    return out
+
+
 def check_kpis(result: dict, label: str) -> None:
     check(all(math.isfinite(v) for v in result.values()), f"{label}: non-finite KPIs {result}")
     check(result["energy_delivered_kwh"] > 0, f"{label}: no energy delivered")
@@ -1054,6 +1400,18 @@ def main() -> int:
     decode_profile = profile_decode(model, rwkv_metrics["decode_step_p50_ms"])
     print(json.dumps({"decode_profile": {"arch": RWKV, "batch": DECODE_B, **decode_profile}}))
     del model, prefill, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- 19. PPO, card against CPU -------------------------------------------------
+    ppo_err = ppo_card_vs_cpu(dev)
+
+    # --- 20. PPO training at full width --------------------------------------------
+    ppo_summary, trainer, runner = ppo_train(env)
+
+    # --- 21. profile of one PPO update ---------------------------------------------
+    print(json.dumps({"ppo_profile": profile_ppo(trainer, runner, ppo_summary)}))
+    del trainer, runner
 
     metrics = {
         "env_steps_per_s": env_steps_per_s,
@@ -1067,6 +1425,7 @@ def main() -> int:
         "peak_memory_gib": peak_gib,
         ZAMBA: zamba_metrics,
         RWKV: rwkv_metrics,
+        "ppo": {**ppo_summary, "card_vs_cpu": ppo_err},
     }
     print(json.dumps({"metrics": metrics}))
     kernels = [
@@ -1075,7 +1434,10 @@ def main() -> int:
             "route": "cuda",
             "source": "src/repro_torch/kernels/chargax_step/csrc/chargax_step.cu",
             "replaces": "src/repro/kernels/chargax_step/kernel.py:26",
-            "launches": launches,
+            "launches": launches + ppo_summary["chargax_step_launches"],
+            "launches_by_path": {
+                "evaluate": launches, "make_train": ppo_summary["chargax_step_launches"],
+            },
             "max_abs_err": max_err,
             "ms": kernel_ms,
             "plain_ms": plain_ms,

@@ -15,8 +15,26 @@ import torch
 from repro_torch.core.state import EnvParams, EnvState, RewardWeights
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import CausalLM
+from repro_torch.optim.adamw import AdamWState
 from repro_torch.rl.networks import ActorCritic
 from repro_torch.utils import resolve_device
+
+
+def _actor_critic_leaves(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A JAX actor-critic tree ``{"actor": {"h0": {"w", "b"}, ..., "out": ...},
+    "critic": ...}`` (or one of AdamW's moment trees over it) by the
+    :class:`ActorCritic` parameter names.  The JAX layers compute
+    ``x @ w + b``, so each ``Linear.weight`` is ``w.T``; Tanh layers sit
+    between the Linear layers of each ``nn.Sequential``."""
+    n_hidden = sum(1 for k in tree["actor"] if k.startswith("h"))
+    names = [f"h{i}" for i in range(n_hidden)] + ["out"]
+    out = {}
+    for side in ("actor", "critic"):
+        for i, name in enumerate(names):
+            layer = tree[side][name]
+            out[f"{side}.{2 * i}.weight"] = torch.from_numpy(np.array(layer["w"]).T.copy())
+            out[f"{side}.{2 * i}.bias"] = torch.from_numpy(np.array(layer["b"]))
+    return out
 
 
 def actor_critic_from_numpy(
@@ -25,10 +43,7 @@ def actor_critic_from_numpy(
     *,
     device: torch.device | str | None = None,
 ) -> ActorCritic:
-    """``{"actor": {"h0": {"w", "b"}, ..., "out": ...}, "critic": ...}`` -> ActorCritic.
-
-    The JAX layers compute ``x @ w + b``, so each ``Linear.weight`` is ``w.T``.
-    """
+    """``{"actor": {"h0": {"w", "b"}, ..., "out": ...}, "critic": ...}`` -> ActorCritic."""
     actor = params["actor"]
     n_hidden = sum(1 for k in actor if k.startswith("h"))
     hidden = tuple(int(np.shape(actor[f"h{i}"]["w"])[1]) for i in range(n_hidden))
@@ -37,14 +52,24 @@ def actor_critic_from_numpy(
     if n_out % n_heads:
         raise ValueError(f"policy head width {n_out} is not a multiple of {n_heads} heads")
     net = ActorCritic(obs_dim, n_heads, n_out // n_heads, hidden)
-    names = [f"h{i}" for i in range(n_hidden)] + ["out"]
+    leaves = _actor_critic_leaves(params)
     with torch.no_grad():
-        for side, seq in (("actor", net.actor), ("critic", net.critic)):
-            linears = [m for m in seq if isinstance(m, torch.nn.Linear)]
-            for name, layer in zip(names, linears):
-                layer.weight.copy_(torch.from_numpy(np.array(params[side][name]["w"]).T))
-                layer.bias.copy_(torch.from_numpy(np.array(params[side][name]["b"])))
+        for name, param in net.named_parameters():
+            param.copy_(leaves[name])
     return net.to(resolve_device(device))
+
+
+def adamw_state_from_numpy(
+    state: Mapping[str, Any], *, device: torch.device | str | None = None
+) -> AdamWState:
+    """A JAX ``AdamWState`` over actor-critic params, as ``{"step", "mu",
+    "nu"}`` with numpy leaves, -> the port's state by ActorCritic names."""
+    dev = resolve_device(device)
+
+    def moments(tree) -> dict[str, torch.Tensor]:
+        return {k: v.to(dev) for k, v in _actor_critic_leaves(tree).items()}
+
+    return AdamWState(step=int(state["step"]), mu=moments(state["mu"]), nu=moments(state["nu"]))
 
 
 def env_state_from_numpy(

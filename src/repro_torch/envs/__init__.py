@@ -1,5 +1,20 @@
-"""The environment protocol and typed spaces."""
+"""The environment protocol, typed spaces and the wrapper stack.
+
+    wenv = LogWrapper(AutoReset(ChargaxEnv(cfg)))    # autoreset + episode stats
+    obs, state = wenv.reset(gen, num_envs=16)
+    obs, state, reward, done, info = wenv.step(gen, state, action)
+"""
 from repro_torch.envs import spaces
 from repro_torch.envs.base import Environment, TimeStep
+from repro_torch.envs.wrappers import AutoReset, AutoResetDraws, LogState, LogWrapper, Wrapper
 
-__all__ = ["Environment", "TimeStep", "spaces"]
+__all__ = [
+    "AutoReset",
+    "AutoResetDraws",
+    "Environment",
+    "LogState",
+    "LogWrapper",
+    "TimeStep",
+    "Wrapper",
+    "spaces",
+]

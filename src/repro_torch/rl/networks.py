@@ -77,12 +77,25 @@ class ActorCritic(nn.Module):
 # ---------------------------------------------------------------------------
 # Factorized categorical distribution helpers
 # ---------------------------------------------------------------------------
-def sample_action(logits: Tensor, generator: torch.Generator | None = None) -> Tensor:
-    """(..., H, K) logits -> (..., H) int64 actions, by Gumbel-argmax."""
-    u = torch.rand(
-        logits.shape, generator=generator, device=logits.device, dtype=logits.dtype
-    )
-    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+def gumbel_noise(
+    shape: tuple[int, ...], generator: torch.Generator | None, device: torch.device | str
+) -> Tensor:
+    """Standard Gumbel noise ``-log(-log(u))``, u uniform in [0, 1)."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return -torch.log(-torch.log(u))
+
+
+def sample_action(
+    logits: Tensor, generator: torch.Generator | None = None, *, gumbel: Tensor | None = None
+) -> Tensor:
+    """(..., H, K) logits -> (..., H) int64 actions, by Gumbel-argmax.
+
+    The noise is drawn from ``generator``, or given as ``gumbel`` (the
+    shape of ``logits``; how a replay injects the JAX package's draws).
+    """
+    if gumbel is None:
+        gumbel = gumbel_noise(logits.shape, generator, logits.device)
+    return torch.argmax(logits + gumbel, dim=-1)
 
 
 def log_prob(logits: Tensor, action: Tensor) -> Tensor:
