@@ -112,12 +112,35 @@ Phases, in order (any failure raises and the script exits non-zero):
    20's unprofiled medians, kernels per rollout step and per minibatch step,
    top kernels; then what AutoReset adds to a step: 20 env steps alone and
    20 AutoReset steps (a reset of every env and the selects), host ms,
-   device busy ms and kernels per step of each.
+   device busy ms and kernels per step of each;
+22. stacked env, card against CPU: the 4-scenario ``--v2g`` mix
+   (``V2G_MIXED_PACK[:4]``, ``allow_v2g``, fused step) stacked and expanded
+   to 64 envs, one 288-step episode under random actions on the card, then
+   on the CPU with the card's draws replayed, held env by env as phase 19
+   (at most 8 of 64 may leave); then ``chargax_step`` against
+   ``fused_step_ref`` on slabs captured from this rollout (negative
+   targets; the mix's own caps and per-scenario caps at half of each
+   scenario's mean requested power, which bind) at phase 3's tolerance;
+23. PPO across the pack at full width, as ``rl_train --fused --v2g
+   --num-envs 16384`` drives it: 16384 envs x 300 steps, 4 x 4 minibatches,
+   hidden (128, 128), Table 3, fp32 with TF32 off, 4 updates from seed 0
+   through ``make_train(scenario_params=...)``'s parts with CUDA events:
+   exactly 1200 ``chargax_step`` launches and no other kernel of ours, one
+   copy of each table per scenario (``lowered_env_params``, leading axis
+   4), per-update rollout / GAE / update ms, rollout reward and training
+   env-steps/s, peak memory, a profile of one more rollout, then the
+   launcher's V2G report (``ppo``, ``max_charge``, ``v2g_arbitrage`` on 16
+   episodes of the first scenario, seed 17);
+24. catalog sweep: evaluate's episodes (``run_episodes``, ``params_axis=0``)
+   over all 25 catalog scenarios stacked, one episode each, under phase
+   23's greedy policy: exactly 288 ``chargax_step`` launches, the
+   per-scenario profit and the episode's ms.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and before that a ``{"kernels": [...]}``
 line with all four kernels (``chargax_step``'s launches summed over the
-episode of phase 4 and the training of phase 20).  Needs the repository's
+episode of phase 4, the training of phases 20 and 23 and the sweep of
+phase 24).  Needs the repository's
 ``src/`` beside this file.  Every path runs at its full depth.
 """
 from __future__ import annotations
@@ -143,7 +166,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs.registry import build_model, get_config  # noqa: E402
-from repro_torch.core import ChargaxEnv, EnvConfig, sampling  # noqa: E402
+from repro_torch import scenarios  # noqa: E402
+from repro_torch.core import ChargaxEnv, EnvConfig, sampling, transition  # noqa: E402
 from repro_torch.distributed.train_step import make_prefill_step, make_serve_step  # noqa: E402
 from repro_torch.envs import AutoReset  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -155,6 +179,7 @@ from repro_torch.kernels.mamba2_ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.mamba2_ssd.ref import ssd_chunked  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv.ref import wkv_chunked  # noqa: E402
+from repro_torch.launch import rl_train  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.rl import (  # noqa: E402
     PPOConfig,
@@ -164,6 +189,7 @@ from repro_torch.rl import (  # noqa: E402
     max_charge_policy,
     networks,
     random_policy,
+    run_episodes,
     serve,
 )
 from repro_torch.rl.networks import ActorCritic  # noqa: E402
@@ -233,6 +259,10 @@ PPO_HANDFUL = 8  # tests/test_torch_ppo.py HANDFUL
 # envs of PPO_CHECK_ENVS that may leave the CPU's rollout (3 of 64 did on an
 # H100; a fault in a step or the policy moves every env)
 PPO_ENVS_OFF = 8
+# the scenario phases (22-24): envs of the stacked card-vs-CPU episode (16 per
+# scenario of the 4-scenario V2G mix) and PPO updates across the mix
+MIX_CHECK_ENVS = 64
+MIX_UPDATES = 4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1120,22 +1150,23 @@ def ppo_card_vs_cpu(dev: torch.device) -> dict:
     }
 
 
-def ppo_train(env: ChargaxEnv) -> tuple[dict, object, object]:
-    """Phase 20: PPO_UPDATES updates at 16384 envs through make_train's parts,
-    CUDA events between them.  Returns (summary, the trainer, its runner)."""
-    dev, steps = env.device, PPO_SHAPE["rollout_steps"]
-    cfg = PPOConfig(num_envs=NUM_ENVS, total_timesteps=PPO_UPDATES * NUM_ENVS * steps, **PPO_SHAPE)
-    check(cfg.num_updates == PPO_UPDATES, f"{cfg.num_updates} updates")
-    train = make_train(cfg, env, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(PPO_UPDATES)]
+def drive_updates(train, gen: torch.Generator, expected: dict[str, int]) -> dict:
+    """Every update of ``train`` through make_train's parts (what
+    PPOTrain.update runs), CUDA events between them, from the generator
+    ``gen``; every kernel count reset just before and held to ``expected``
+    just after.  Prints each update's parts, rollout reward and training
+    env-steps/s; returns the run's numbers, the final runner under
+    ``"runner"``."""
+    cfg = train.config
+    n_updates, steps = cfg.num_updates, cfg.rollout_steps
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(n_updates)]
     per_update = []
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
     runner = train.init(gen)
-    for ev in marks:  # what PPOTrain.update runs, with events between the parts
+    for ev in marks:
         ev[0].record()
         after, traj = train.rollout(runner)
         ev[1].record()
@@ -1149,7 +1180,6 @@ def ppo_train(env: ChargaxEnv) -> tuple[dict, object, object]:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
-    expected = {"chargax_step": steps * PPO_UPDATES, "flash_attention": 0, "mamba2_ssd": 0, "rwkv6_wkv": 0}
     check(counts == expected, f"ppo launches {counts}, expected {expected}")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     rollout_ms = [e[0].elapsed_time(e[1]) for e in marks]
@@ -1159,20 +1189,49 @@ def ppo_train(env: ChargaxEnv) -> tuple[dict, object, object]:
     for k, v in metrics.items():
         check(all(math.isfinite(x) for x in v), f"ppo metric {k} not finite: {v}")
     rr = metrics["rollout_reward"]
-    for u in range(PPO_UPDATES):
+    for u in range(n_updates):
+        update_s = (rollout_ms[u] + gae_ms[u] + update_ms[u]) / 1000.0
         print(
             f"ppo update {u}: rollout {rollout_ms[u]:.1f} ms, gae {gae_ms[u]:.2f} ms, "
             f"update {update_ms[u]:.1f} ms, rollout_reward {rr[u]:.3f}, "
-            f"loss {metrics['loss'][u]:.4f}, entropy {metrics['entropy'][u]:.4f}"
+            f"loss {metrics['loss'][u]:.4f}, entropy {metrics['entropy'][u]:.4f}, "
+            f"{cfg.batch_size / update_s:.0f} training env-steps/s"
         )
-    env_steps_per_s = cfg.total_timesteps / wall
+    return {
+        "num_envs": cfg.num_envs,
+        "rollout_steps": steps,
+        "updates": n_updates,
+        "wall_s": wall,
+        "env_steps_per_s": cfg.total_timesteps / wall,
+        "chargax_step_launches": counts["chargax_step"],
+        "peak_memory_gib": peak_gib,
+        "rollout_ms": rollout_ms,
+        "gae_ms": gae_ms,
+        "update_ms": update_ms,
+        "metrics": metrics,
+        "runner": runner,
+    }
+
+
+def ppo_train(env: ChargaxEnv) -> tuple[dict, object, object]:
+    """Phase 20: PPO_UPDATES updates at 16384 envs through make_train's parts,
+    CUDA events between them.  Returns (summary, the trainer, its runner)."""
+    dev, steps = env.device, PPO_SHAPE["rollout_steps"]
+    cfg = PPOConfig(num_envs=NUM_ENVS, total_timesteps=PPO_UPDATES * NUM_ENVS * steps, **PPO_SHAPE)
+    check(cfg.num_updates == PPO_UPDATES, f"{cfg.num_updates} updates")
+    train = make_train(cfg, env, device=dev)
+    expected = {"chargax_step": steps * PPO_UPDATES, "flash_attention": 0, "mamba2_ssd": 0, "rwkv6_wkv": 0}
+    summary = drive_updates(train, torch.Generator(device=dev).manual_seed(0), expected)
+    runner = summary.pop("runner")
+    rr = summary["metrics"]["rollout_reward"]
     q = max(PPO_UPDATES // 4, 1)
     first_q, last_q = statistics.mean(rr[:q]), statistics.mean(rr[-q:])
     print(
-        f"ppo training: {PPO_UPDATES} updates x {NUM_ENVS} envs x {steps} steps in {wall:.3f} s = "
-        f"{env_steps_per_s:.0f} env-steps/s, chargax_step launches {counts['chargax_step']}, "
-        f"peak memory {peak_gib:.3f} GiB; mean rollout reward, first quarter {first_q:.3f}, "
-        f"last quarter {last_q:.3f}"
+        f"ppo training: {PPO_UPDATES} updates x {NUM_ENVS} envs x {steps} steps in "
+        f"{summary['wall_s']:.3f} s = {summary['env_steps_per_s']:.0f} env-steps/s, "
+        f"chargax_step launches {summary['chargax_step_launches']}, "
+        f"peak memory {summary['peak_memory_gib']:.3f} GiB; mean rollout reward, "
+        f"first quarter {first_q:.3f}, last quarter {last_q:.3f}"
     )
     check(last_q > first_q, f"ppo did not learn: last quarter {last_q} <= first quarter {first_q}")
 
@@ -1194,20 +1253,7 @@ def ppo_train(env: ChargaxEnv) -> tuple[dict, object, object]:
         evals["ppo_greedy"]["episode_reward"] > evals["random"]["episode_reward"],
         "the trained policy does not beat random_policy",
     )
-    summary = {
-        "num_envs": NUM_ENVS,
-        "rollout_steps": steps,
-        "updates": PPO_UPDATES,
-        "wall_s": wall,
-        "env_steps_per_s": env_steps_per_s,
-        "chargax_step_launches": counts["chargax_step"],
-        "peak_memory_gib": peak_gib,
-        "rollout_ms": rollout_ms,
-        "gae_ms": gae_ms,
-        "update_ms": update_ms,
-        "metrics": metrics,
-        "eval_episode_reward": {k: v["episode_reward"] for k, v in evals.items()},
-    }
+    summary["eval_episode_reward"] = {k: v["episode_reward"] for k, v in evals.items()}
     return summary, train, runner
 
 
@@ -1238,7 +1284,7 @@ def profile_ppo(train, runner, summary: dict) -> dict:
         out[name] = prof
 
     # what AutoReset adds to a step: a reset of every env and the selects
-    env, params = train.env, train.env_params
+    env, params = train.env, train.lowered_env_params
     state = runner.env_state.env_state
     action = torch.zeros((cfg.num_envs, env.num_action_heads), dtype=torch.int32, device=env.device)
     gen = torch.Generator(device=env.device).manual_seed(2)
@@ -1258,6 +1304,178 @@ def profile_ppo(train, runner, summary: dict) -> dict:
         del prof["top_kernels_ms_per_call"]
         out[name] = prof
     return out
+
+
+def v2g_mix_env(dev: torch.device) -> tuple[ChargaxEnv, list[str]]:
+    """The env and scenario mix ``rl_train --fused --v2g --num-envs 16384``
+    builds (V2G on, fused step; the largest V2G_MIXED_PACK prefix dividing
+    16384, which prints its line)."""
+    env = ChargaxEnv(EnvConfig(allow_v2g=True, fused_step=True), device=dev)
+    return env, rl_train.scenario_mix(None, True, NUM_ENVS)
+
+
+def stacked_card_vs_cpu(env: ChargaxEnv, names: list[str]) -> dict:
+    """Phase 22: the V2G mix stacked, MIX_CHECK_ENVS envs through a 288-step
+    episode on the card under random actions (discharge included), then on
+    the CPU with the card's draws replayed, held env by env as phase 19
+    holds them; then ``chargax_step`` against ``fused_step_ref`` on slabs
+    captured from the card's rollout, with the mix's own (unlimited) caps and
+    with per-scenario caps at half of each scenario's mean requested power."""
+    dev, b = env.device, MIX_CHECK_ENVS
+    cpu_env = ChargaxEnv(env.config, device="cpu")
+    params_d, params_c = (
+        scenarios.expand_params(
+            scenarios.stack_params([scenarios.make(n).make_params(e) for n in names]), b
+        )
+        for e in (env, cpu_env)
+    )
+    steps = env.config.episode_steps
+    cfg = env.config
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rng = np.random.default_rng(0)
+    reset = sampling.draw_reset(params_d, b, gen)
+    _, state_d = env.reset(reset, params_d)
+    actions, draws, card, captured = [], [], [], []
+    for step in range(steps):
+        action = torch.from_numpy(rng.integers(0, env.num_actions_per_head, (b, env.num_action_heads)))
+        action_d = action.to(dev)
+        if step % 36 == 0:  # 8 captures through the day
+            tgt_evse, tgt_batt = transition.decode(
+                params_d, state_d, action_d, discretization=cfg.discretization,
+                allow_v2g=cfg.allow_v2g, action_mode=cfg.action_mode,
+            )
+            captured.append(
+                (ops.build_slabs(params_d, state_d, tgt_evse, tgt_batt), transition.grid_cap_kw(params_d, state_d))
+            )
+        drawn = sampling.draw_arrivals(params_d, state_d, gen)
+        ts = env.step(drawn, state_d, action_d, params_d)
+        actions.append(action)
+        draws.append(sampling.ArrivalDraws(**{k: getattr(drawn, k).cpu() for k in drawn.__dataclass_fields__}))
+        card.append({k: v.cpu() for k, v in (("obs", ts.obs), ("reward", ts.reward), ("done", ts.done))}
+                    | {k: getattr(ts.state, k).cpu() for k in ("occupied", "t_remain", "t", "day")})
+        state_d = ts.state
+    torch.cuda.synchronize()
+
+    _, state_c = cpu_env.reset(sampling.ResetDraws(day=reset.day.cpu()), params_c)
+    same = torch.ones((steps, b), dtype=torch.bool)
+    worst = 0.0
+    for step in range(steps):
+        ts = cpu_env.step(draws[step], state_c, actions[step], params_c)
+        got = card[step]
+        for name in ("obs", "reward"):
+            close = torch.isclose(got[name], getattr(ts, name), rtol=1e-4, atol=1e-3)
+            same[step] &= close.reshape(b, -1).all(-1)
+        same[step] &= got["done"] == ts.done
+        for name in ("occupied", "t_remain", "t", "day"):
+            same[step] &= (got[name] == getattr(ts.state, name)).reshape(b, -1).all(-1)
+        state_c = ts.state
+        keep = same[: step + 1].all(0)
+        worst = max(worst, float((got["obs"][keep] - ts.obs[keep]).abs().max()))
+    off = ~same.all(0)
+    first_off = {int(e): int((~same[:, e]).nonzero()[0]) for e in off.nonzero().flatten()}
+    check(len(first_off) <= PPO_ENVS_OFF, f"stacked card vs cpu: {len(first_off)} of {b} envs left {first_off}")
+    discharged = float(state_c.energy_discharged.sum())
+    check(discharged > 0, "the stacked V2G rollout discharged no car")
+    print(
+        f"stacked card vs cpu: {len(names)} scenarios x {b // len(names)} envs x {steps} steps "
+        f"(allow_v2g, fused); envs that left the CPU's rollout at step {first_off}; "
+        f"largest obs error over the others {worst:.3g}; {discharged:.1f} kWh discharged from cars"
+    )
+
+    # the kernel on the rollout's own slabs: negative targets, and caps per scenario
+    pp, dt = params_d.pole, cfg.dt_hours
+    scen = params_d.env_scenario
+    max_err, negative, bound_envs = 0.0, 0, 0
+    for slabs, table_cap in captured:
+        negative += int((slabs.target[:, :-1] < 0).sum())
+        free = fused_step_ref(slabs, pp, dt, table_cap)
+        req = free.p_req.clamp_min(1.0)
+        per_scen = torch.zeros(len(names), device=dev).index_add_(0, scen, req) / (b // len(names))
+        for cap in (table_cap, 0.5 * per_scen[scen]):
+            got = ops.chargax_step(slabs, pp, dt, cap)
+            want = fused_step_ref(slabs, pp, dt, cap)
+            torch.cuda.synchronize()
+            for name, g, w in zip(got._fields, got, want):
+                check(bool(torch.isfinite(g).all()), f"captured slabs {name}: not finite")
+                err = float((g - w).abs().max())
+                check(torch.allclose(g, w, **TOL), f"captured slabs {name}: max abs err {err}")
+                max_err = max(max_err, err)
+        bound_envs += int((want.p_req > cap).sum())
+    check(negative > 0, "no negative target reached the captured slabs")
+    check(bound_envs > 0, "the per-scenario caps never bind")
+    print(
+        f"kernel vs plain on {len(captured)} captured (B={b}, P={pp.member.shape[1]}) slabs: "
+        f"{negative} negative port targets, per-scenario caps binding in {bound_envs} env-steps, "
+        f"max abs err {max_err:.3g}"
+    )
+    return {"envs_off": len(first_off), "obs_max_abs_err": worst, "kernel_max_abs_err": max_err}
+
+
+def ppo_across_pack(env: ChargaxEnv, names: list[str]) -> tuple[dict, object]:
+    """Phase 23: PPO across the stacked V2G mix at 16384 envs, as
+    ``rl_train --fused --v2g`` drives it, through make_train's parts; then
+    the launcher's V2G report.  Returns (summary, the trained policy)."""
+    dev, steps = env.device, PPO_SHAPE["rollout_steps"]
+    cfg = PPOConfig(num_envs=NUM_ENVS, total_timesteps=MIX_UPDATES * NUM_ENVS * steps, **PPO_SHAPE)
+    check(cfg.num_updates == MIX_UPDATES, f"{cfg.num_updates} updates")
+    train = make_train(cfg, env, scenario_params=rl_train.stack_scenarios(env, names), device=dev)
+    lowered, n = train.lowered_env_params, len(names)
+    check(train.scenario_shape == (n, NUM_ENVS // n), f"scenario shape {train.scenario_shape}")
+    for field in ("price_buy_table", "pv_kw_table", "grid_cap_kw_table", "grid_setpoint_kw_table", "car_probs"):
+        shape = tuple(getattr(lowered, field).shape)
+        check(shape[0] == n and len(shape) == 3, f"{field} has shape {shape}: not one copy per scenario")
+    expected = {"chargax_step": steps * MIX_UPDATES, "flash_attention": 0, "mamba2_ssd": 0, "rwkv6_wkv": 0}
+    summary = drive_updates(train, torch.Generator(device=dev).manual_seed(0), expected)
+    runner = summary.pop("runner")
+    print(
+        f"ppo across {n} scenarios ({','.join(names)}): {MIX_UPDATES} updates x {NUM_ENVS} envs x "
+        f"{steps} steps in {summary['wall_s']:.3f} s = {summary['env_steps_per_s']:.0f} env-steps/s, "
+        f"chargax_step launches {summary['chargax_step_launches']}, peak memory "
+        f"{summary['peak_memory_gib']:.3f} GiB, price_buy_table {tuple(lowered.price_buy_table.shape)}"
+    )
+
+    def rollout():
+        train.rollout(runner)
+
+    prof = profile_device(rollout, 1, statistics.median(summary["rollout_ms"]), cpu_ops=False)
+    prof["device_kernels_per_env_step"] = prof["device_kernels_per_call"] / steps
+    summary["rollout_profile"] = prof
+    report = rl_train.v2g_report(env, names[0], runner.params)
+    for name, res in report.items():
+        check(all(math.isfinite(v) for v in res.values()), f"v2g report {name}: {res}")
+    summary["v2g_eval"] = report
+    return summary, runner.params
+
+
+def catalog_sweep(env: ChargaxEnv, net) -> dict:
+    """Phase 24: evaluate's episodes over the whole catalog stacked, one
+    scenario an episode (``params_axis=0``), under phase 23's greedy policy;
+    the kernel counts reset just before and read just after."""
+    names = scenarios.names()
+    stacked = scenarios.stack_params([scenarios.make(n).make_params(env) for n in names])
+    policy = make_ppo_policy(env, greedy=True)
+    gen = torch.Generator(device=env.device).manual_seed(3)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    start.record()
+    state, ep_reward = run_episodes(
+        env, policy, net, gen, len(names), stacked, params_axis=0, device=env.device
+    )
+    end.record()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    steps = env.config.episode_steps
+    expected = {"chargax_step": steps, "flash_attention": 0, "mamba2_ssd": 0, "rwkv6_wkv": 0}
+    check(counts == expected, f"catalog sweep launches {counts}, expected {expected}")
+    profit = state.profit_cum.tolist()
+    check(all(math.isfinite(v) for v in profit + ep_reward.tolist()), "catalog sweep: non-finite result")
+    episode_ms = start.elapsed_time(end)
+    print(
+        f"catalog sweep: {len(names)} scenarios, one episode each, {episode_ms:.1f} ms; profit "
+        + " ".join(f"{n}={v:.2f}" for n, v in zip(names, profit))
+    )
+    return {"episode_ms": episode_ms, "profit": dict(zip(names, profit)), "launches": counts["chargax_step"]}
 
 
 def check_kpis(result: dict, label: str) -> None:
@@ -1412,6 +1630,33 @@ def main() -> int:
     # --- 21. profile of one PPO update ---------------------------------------------
     print(json.dumps({"ppo_profile": profile_ppo(trainer, runner, ppo_summary)}))
     del trainer, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- 22. stacked env, card against CPU --------------------------------------------
+    lap = time.perf_counter()
+    mix_env, mix = v2g_mix_env(dev)
+    stacked_err = stacked_card_vs_cpu(mix_env, mix)
+    phase_s = {22: time.perf_counter() - lap}
+
+    # --- 23. PPO across the pack at full width -----------------------------------------
+    lap = time.perf_counter()
+    mix_summary, mix_net = ppo_across_pack(mix_env, mix)
+    phase_s[23] = time.perf_counter() - lap
+    print(
+        f"ppo across the mix against phase 20 in this call: "
+        f"{mix_summary['env_steps_per_s']:.0f} against {ppo_summary['env_steps_per_s']:.0f} "
+        f"env-steps/s ({mix_summary['env_steps_per_s'] / ppo_summary['env_steps_per_s']:.4f}); "
+        f"rollout median {statistics.median(mix_summary['rollout_ms']):.1f} against "
+        f"{statistics.median(ppo_summary['rollout_ms']):.1f} ms; kernels per rollout step "
+        f"{mix_summary['rollout_profile']['device_kernels_per_env_step']:.2f}"
+    )
+
+    # --- 24. catalog sweep -------------------------------------------------------------
+    lap = time.perf_counter()
+    sweep = catalog_sweep(mix_env, mix_net)
+    phase_s[24] = time.perf_counter() - lap
+    print("scenario phases, host s: " + " ".join(f"{k}={v:.1f}" for k, v in phase_s.items()))
 
     metrics = {
         "env_steps_per_s": env_steps_per_s,
@@ -1426,6 +1671,9 @@ def main() -> int:
         ZAMBA: zamba_metrics,
         RWKV: rwkv_metrics,
         "ppo": {**ppo_summary, "card_vs_cpu": ppo_err},
+        "ppo_v2g_mix": {**mix_summary, "scenarios": mix, "stacked_card_vs_cpu": stacked_err},
+        "catalog_sweep": sweep,
+        "scenario_phases_s": phase_s,
     }
     print(json.dumps({"metrics": metrics}))
     kernels = [
@@ -1434,11 +1682,15 @@ def main() -> int:
             "route": "cuda",
             "source": "src/repro_torch/kernels/chargax_step/csrc/chargax_step.cu",
             "replaces": "src/repro/kernels/chargax_step/kernel.py:26",
-            "launches": launches + ppo_summary["chargax_step_launches"],
+            "launches": launches + ppo_summary["chargax_step_launches"]
+            + mix_summary["chargax_step_launches"] + sweep["launches"],
             "launches_by_path": {
-                "evaluate": launches, "make_train": ppo_summary["chargax_step_launches"],
+                "evaluate": launches,
+                "make_train": ppo_summary["chargax_step_launches"],
+                "make_train_v2g_mix": mix_summary["chargax_step_launches"],
+                "evaluate_catalog": sweep["launches"],
             },
-            "max_abs_err": max_err,
+            "max_abs_err": max(max_err, stacked_err["kernel_max_abs_err"]),
             "ms": kernel_ms,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,

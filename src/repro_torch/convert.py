@@ -17,6 +17,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import CausalLM
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.rl.networks import ActorCritic
+from repro_torch.scenarios.stacking import stack_params
 from repro_torch.utils import resolve_device
 
 
@@ -88,29 +89,42 @@ def env_state_from_numpy(
     )
 
 
+# the EnvParams fields carried across as arrays
+_PARAM_ARRAYS = tuple(
+    f.name for f in dataclasses.fields(EnvParams) if f.name not in ("weights", "pole", "env_scenario")
+)
+
+
 def env_params_from_numpy(
     fields: Mapping[str, Any], *, device: torch.device | str | None = None
 ) -> EnvParams:
     """EnvParams from its fields as float32 numpy arrays; ``weights`` is a
     mapping of the RewardWeights fields.
 
+    A JAX scenario stack (``stack_params``: every field with a leading axis
+    S, its price table ``(S, 365, spd)``) becomes the port's stack
+    (:func:`repro_torch.scenarios.stack_params`), which keeps one copy of
+    the station fields and raises where the scenarios' stations differ.
+
     The JAX ``pole`` pack is not carried across (it is lane-padded for the
     TPU): build the port's with ``kernels.chargax_step.ops.build_pole_params``.
     """
+    if np.ndim(fields["price_buy_table"]) == 3:
+
+        def entry(s: int) -> dict[str, Any]:
+            row = {k: np.asarray(fields[k])[s] for k in _PARAM_ARRAYS}
+            row["weights"] = {k: np.asarray(v)[s] for k, v in fields["weights"].items()}
+            return row
+
+        n = np.shape(fields["price_buy_table"])[0]
+        return stack_params([env_params_from_numpy(entry(s), device=device) for s in range(n)])
     dev = resolve_device(device)
 
     def arr(x) -> torch.Tensor:
         return torch.as_tensor(np.array(x, dtype=np.float32), device=dev)
 
     weights = RewardWeights(**{k: arr(v) for k, v in fields["weights"].items()})
-    return EnvParams(
-        **{
-            f.name: arr(fields[f.name])
-            for f in dataclasses.fields(EnvParams)
-            if f.name not in ("weights", "pole")
-        },
-        weights=weights,
-    )
+    return EnvParams(**{name: arr(fields[name]) for name in _PARAM_ARRAYS}, weights=weights)
 
 
 def _tensor(x) -> torch.Tensor:

@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.core import datasets, sampling, station, transition
 from repro_torch.core.sampling import ArrivalDraws, ResetDraws
-from repro_torch.core.state import EnvParams, EnvState, RewardWeights
+from repro_torch.core.state import EnvParams, EnvState, RewardWeights, scenario_rows
 from repro_torch.core.transition import GRID_CAP_UNLIMITED, AllocationResult
 from repro_torch.envs import spaces
 from repro_torch.envs.base import Environment, TimeStep
@@ -74,6 +74,22 @@ class EnvConfig:
     @property
     def dt_hours(self) -> float:
         return self.dt_minutes / 60.0
+
+
+def _check_batch(params: EnvParams, num_envs: int) -> None:
+    """Raise unless ``params`` serves a batch of ``num_envs`` envs: a scenario
+    stack must be expanded to exactly that batch first."""
+    if params.env_scenario is None:
+        if params.price_buy_table.dim() == 3:
+            raise ValueError(
+                "a scenario stack steps envs only once expanded to their batch: "
+                "scenarios.expand_params(stacked, num_envs)"
+            )
+    elif params.env_scenario.shape[0] != num_envs:
+        raise ValueError(
+            f"params expanded to {params.env_scenario.shape[0]} envs, "
+            f"the batch has {num_envs}"
+        )
 
 
 class ChargaxEnv(Environment):
@@ -253,6 +269,7 @@ class ChargaxEnv(Environment):
             draws = sampling.draw_reset(params, num_envs, rng)
         day = draws.day.to(torch.int32)
         b, n, dev = day.shape[0], self.n_evse, self.device
+        _check_batch(params, b)
         zf = torch.zeros((b, n), dtype=torch.float32, device=dev)
         zs = torch.zeros((b,), dtype=torch.float32, device=dev)
         state = EnvState(
@@ -271,7 +288,7 @@ class ChargaxEnv(Environment):
             user_type=zf,
             t=torch.zeros((b,), dtype=torch.int32, device=dev),
             day=day,
-            price_buy=params.price_buy_table[day.long()],
+            price_buy=scenario_rows(params, params.price_buy_table, day.long()),
             profit_cum=zs,
             energy_delivered=zs,
             energy_discharged=zs,
@@ -299,6 +316,7 @@ class ChargaxEnv(Environment):
         the settle tail is shared.
         """
         params = params if params is not None else self.default_params
+        _check_batch(params, action.shape[0])
         cfg = self.config
         if cfg.fused_step:
             from repro_torch.kernels.chargax_step import ops as fused_ops

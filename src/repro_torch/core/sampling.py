@@ -17,7 +17,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.state import EnvParams, EnvState
+from repro_torch.core.state import EnvParams, EnvState, per_port, scenario_rows
 
 Tensor = torch.Tensor
 
@@ -43,11 +43,12 @@ class ResetDraws:
 
 def arrival_rate(params: EnvParams, state: EnvState) -> Tensor:
     """Expected arrivals this step, (B,): the time-of-day rate × day scale."""
-    spd = params.arrival_rate.shape[0]
-    n_days = params.arrival_day_scale.shape[0]
-    return (
-        params.arrival_rate[torch.remainder(state.t, spd).long()]
-        * params.arrival_day_scale[torch.remainder(state.day, n_days).long()]
+    spd = params.arrival_rate.shape[-1]
+    n_days = params.arrival_day_scale.shape[-1]
+    return scenario_rows(
+        params, params.arrival_rate, torch.remainder(state.t, spd).long()
+    ) * scenario_rows(
+        params, params.arrival_day_scale, torch.remainder(state.day, n_days).long()
     )
 
 
@@ -56,7 +57,7 @@ def car_probs(params: EnvParams, day: Tensor) -> Tensor:
     probs = params.car_probs
     if probs.dim() == 1:
         return probs.expand(day.shape[0], -1)
-    return probs[torch.remainder(day, probs.shape[0]).long()]
+    return scenario_rows(params, probs, torch.remainder(day, probs.shape[-2]).long())
 
 
 def draw_arrivals(
@@ -71,11 +72,14 @@ def draw_arrivals(
     )
     z_stay = torch.randn((b, n), generator=generator, device=dev)
     # Beta(a, b) as X / (X + Y) with X ~ Gamma(a), Y ~ Gamma(b)
-    x = torch._standard_gamma(params.soc0_a.expand(b, n).contiguous(), generator=generator)
-    y = torch._standard_gamma(params.soc0_b.expand(b, n).contiguous(), generator=generator)
+    def ports(field: Tensor) -> Tensor:
+        return per_port(field).expand(b, n).contiguous()
+
+    x = torch._standard_gamma(ports(params.soc0_a), generator=generator)
+    y = torch._standard_gamma(ports(params.soc0_b), generator=generator)
     z_tgt = torch.randn((b, n), generator=generator, device=dev)
     bern = torch.bernoulli(
-        params.p_time_sensitive.expand(b, n).contiguous(), generator=generator
+        ports(params.p_time_sensitive), generator=generator
     )
     return ArrivalDraws(
         m=m.to(torch.int32),
@@ -91,7 +95,7 @@ def draw_reset(
     params: EnvParams, num_envs: int, generator: torch.Generator
 ) -> ResetDraws:
     """Exploring starts over the price dataset (paper App. B.1): a day per env."""
-    n_days = params.price_buy_table.shape[0]
+    n_days = params.price_buy_table.shape[-2]
     day = torch.randint(
         0, n_days, (num_envs,), generator=generator,
         device=params.price_buy_table.device, dtype=torch.int32,

@@ -8,8 +8,12 @@ paper's Eq. 4 factorisation.
 Batching is written out: every :class:`EnvState` field carries a leading
 ``num_envs`` axis (``(B, N)`` per port, ``(B,)`` per station), the layout
 ``VmapWrapper`` produces in the JAX package.  :class:`EnvParams` is shared by
-all envs and has no batch axis.  Dtypes follow the JAX package: ``t_remain``,
-``t`` and ``day`` are int32, every other field float32.
+all envs and has no batch axis, unless it is a scenario stack expanded to the
+batch (:func:`repro_torch.scenarios.expand_params`): then ``env_scenario``
+maps each env to its scenario, the tables read by the clock keep one copy
+per scenario on a leading axis S, and the other scenario fields hold one row
+per env.  Dtypes follow the JAX package: ``t_remain``, ``t`` and ``day`` are
+int32, every other field float32.
 """
 from __future__ import annotations
 
@@ -44,6 +48,13 @@ class EnvParams:
     Station arrays come from :class:`repro_torch.core.station.StationLayout`;
     data tables from :mod:`repro_torch.core.datasets`.  Scalars are 0-d
     float32 tensors on the env's device.
+
+    Expanded from a scenario stack of S scenarios to B envs, the station
+    fields and ``pole`` are shared as they are; the clock-read tables
+    (``price_buy_table``, ``arrival_rate``, ``arrival_day_scale``, the
+    PV/grid tables and ``car_probs``) are ``(S, ...)``, read at
+    ``[env_scenario, ...]``; every other field has a leading env axis B
+    (scalars ``(B,)``, ``evse_v2g_mask`` ``(B, N)``, car tables ``(B, M)``).
     """
 
     # --- station architecture (flattened tree; battery = extra leaf column) ---
@@ -98,6 +109,23 @@ class EnvParams:
     # (node, pole) membership and its per-node bitmask, built once at
     # make_params time so the per-step path never rebuilds it.
     pole: Any = None
+    # --- scenario stack expanded to the batch (None: one world for all envs) ---
+    # (B,) int64: env b belongs to scenario b // (B // S)
+    env_scenario: Tensor | None = None
+
+
+def scenario_rows(params: EnvParams, table: Tensor, *index: Tensor) -> Tensor:
+    """``table[index]`` per env.  A clock-read table of an expanded scenario
+    stack has a leading scenario axis, read at each env's scenario."""
+    if params.env_scenario is None:
+        return table[index]
+    return table[(params.env_scenario,) + index]
+
+
+def per_port(field: Tensor) -> Tensor:
+    """A scalar params field, 0-d or a row per env ``(B,)``, shaped to
+    broadcast against ``(B, N)`` per-port tensors."""
+    return field[..., None]
 
 
 @dataclasses.dataclass(frozen=True)

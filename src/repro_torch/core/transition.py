@@ -13,7 +13,10 @@ treat the station battery as the paper's (N+1)-th pole: a lane with
 ``eff = eta_b`` and an unbounded energy request (``BIG`` sentinel).
 
 Shapes: per-port tensors are ``(B, N)``, per-station tensors ``(B,)``; the
-shared :class:`EnvParams` rows broadcast against them.  Random draws enter
+shared :class:`EnvParams` rows broadcast against them.  Params expanded from
+a scenario stack carry a row per env of their scenario fields (scalars
+``(B,)``, read here as ``(B, 1)`` against per-port tensors) and read their
+clock tables at each env's scenario (:func:`scenario_rows`).  Random draws enter
 through :mod:`repro_torch.core.sampling`: ``arrive_cars`` applies an
 :class:`ArrivalDraws` and draws nothing itself.
 """
@@ -32,7 +35,7 @@ from repro_torch.core.rewards import (
     step_energies,
 )
 from repro_torch.core.sampling import ArrivalDraws
-from repro_torch.core.state import EnvParams, EnvState
+from repro_torch.core.state import EnvParams, EnvState, per_port, scenario_rows
 from repro_torch.utils import replace
 
 Tensor = torch.Tensor
@@ -47,12 +50,21 @@ BIG = 1e30
 GRID_CAP_UNLIMITED = 1e9
 
 
-def _table_at(table: Tensor, day: Tensor, t: Tensor) -> Tensor:
-    """``table[day mod rows, t mod cols]`` per env, for a (rows, cols) table."""
-    return table[
-        torch.remainder(day, table.shape[0]).long(),
-        torch.remainder(t, table.shape[1]).long(),
-    ]
+def _table_at(params: EnvParams, table: Tensor, day: Tensor, t: Tensor) -> Tensor:
+    """``table[day mod rows, t mod cols]`` per env, for a (rows, cols) table
+    of ``params`` (``(S, rows, cols)`` in an expanded scenario stack)."""
+    return scenario_rows(
+        params,
+        table,
+        torch.remainder(day, table.shape[-2]).long(),
+        torch.remainder(t, table.shape[-1]).long(),
+    )
+
+
+def _per_model(table: Tensor, model: Tensor) -> Tensor:
+    """``table[model]`` for a car table: ``(M,)`` shared, or ``(B, M)`` a row
+    per env; ``model`` is ``(B, N)``."""
+    return table[model] if table.dim() == 1 else table.gather(-1, model)
 
 
 # ---------------------------------------------------------------------------
@@ -305,7 +317,7 @@ def requested_power_kw(params: EnvParams, applied: AppliedActions) -> Tensor:
 
 def grid_cap_kw(params: EnvParams, state: EnvState) -> Tensor:
     """Feeder power cap [kW] in force at each env's (day, step), (B,)."""
-    return _table_at(params.grid_cap_kw_table, state.day, state.t)
+    return _table_at(params, params.grid_cap_kw_table, state.day, state.t)
 
 
 def curtail(applied: AppliedActions, scale: Tensor) -> AppliedActions:
@@ -472,7 +484,7 @@ class ArriveResult(NamedTuple):
 def arrive_cars(params: EnvParams, state: EnvState, draws: ArrivalDraws) -> ArriveResult:
     """Apply one step's arrival draws: Poisson count, first-come-first-served
     port assignment, and the car and user profiles of the assigned ports."""
-    spd = params.arrival_rate.shape[0]
+    spd = params.arrival_rate.shape[-1]
     m = draws.m
 
     # padded fleet lanes (evse_mask == 0) never accept cars
@@ -488,20 +500,25 @@ def arrive_cars(params: EnvParams, state: EnvState, draws: ArrivalDraws) -> Arri
 
     # --- car profiles --------------------------------------------------------
     model = draws.model
-    cap = params.car_capacity[model]
-    tau = params.car_tau[model]
+    cap = _per_model(params.car_capacity, model)
+    tau = _per_model(params.car_tau, model)
     car_kw = torch.where(
-        params.evse_is_dc > 0.5, params.car_dc_kw[model], params.car_ac_kw[model]
+        params.evse_is_dc > 0.5,
+        _per_model(params.car_dc_kw, model),
+        _per_model(params.car_ac_kw, model),
     )
     rbar = car_kw * 1000.0 / params.evse_voltage  # car-side current limit [A]
 
     # --- user profiles -------------------------------------------------------
-    stay_h = torch.exp(params.stay_mu_log + params.stay_sigma * draws.z_stay)
+    stay_h = torch.exp(
+        per_port(params.stay_mu_log) + per_port(params.stay_sigma) * draws.z_stay
+    )
     steps_per_hour = spd / 24.0
     stay_steps = (stay_h * steps_per_hour).to(torch.int32).clamp_min(1)
     soc0 = torch.clamp(draws.soc0, 0.02, 0.95)
     target = torch.clamp(
-        params.target_soc_mu + params.target_soc_std * draws.z_tgt, min=soc0 + 0.05
+        per_port(params.target_soc_mu) + per_port(params.target_soc_std) * draws.z_tgt,
+        min=soc0 + 0.05,
     ).clamp_max(1.0)
     e_req = (target - soc0) * cap
     # u: 0 = time-sensitive (leaves at deadline), 1 = charge-sensitive
@@ -572,7 +589,7 @@ def settle(
     dt_hours: float,
 ) -> SettleResult:
     """Reward settlement for one step: Eq. 1-3 plus the two grid penalties."""
-    e_pv = _table_at(params.pv_kw_table, state.day, state.t) * dt_hours
+    e_pv = _table_at(params, params.pv_kw_table, state.day, state.t) * dt_hours
     energies = step_energies(
         params, charged.e_car, charged.e_batt_net, e_pv, charged.e_repaid
     )
@@ -591,7 +608,7 @@ def settle(
         state.price_buy,
         dt_hours,
     )
-    setpoint = _table_at(params.grid_setpoint_kw_table, state.day, state.t)
+    setpoint = _table_at(params, params.grid_setpoint_kw_table, state.day, state.t)
     setpoint_dev = (alloc.power_kw - setpoint).abs()
     w = params.weights
     reward = (
@@ -607,11 +624,13 @@ def advance_time(params: EnvParams, state: EnvState, profit: Tensor) -> EnvState
     """At midnight advance the day (mod table length) and reload the price row."""
     spd = state.price_buy.shape[-1]
     t_next = state.t + 1
-    n_days = params.price_buy_table.shape[0]
+    n_days = params.price_buy_table.shape[-2]
     midnight = torch.remainder(t_next, spd) == 0
     day_next = torch.where(midnight, torch.remainder(state.day + 1, n_days), state.day)
     price_next = torch.where(
-        midnight[:, None], params.price_buy_table[day_next.long()], state.price_buy
+        midnight[:, None],
+        scenario_rows(params, params.price_buy_table, day_next.long()),
+        state.price_buy,
     )
     return replace(
         state,

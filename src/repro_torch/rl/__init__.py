@@ -8,7 +8,7 @@ from repro_torch.rl.baselines import (
     random_policy,
     v2g_arbitrage_policy,
 )
-from repro_torch.rl.eval import evaluate, make_ppo_policy, make_serve, serve
+from repro_torch.rl.eval import evaluate, make_ppo_policy, make_serve, run_episodes, serve
 from repro_torch.rl.ppo import PPOConfig, make_train
 
 __all__ = [
@@ -23,6 +23,7 @@ __all__ = [
     "networks",
     "price_threshold_policy",
     "random_policy",
+    "run_episodes",
     "serve",
     "v2g_arbitrage_policy",
 ]

@@ -7,7 +7,10 @@
 Each update is a rollout of ``rollout_steps`` batched env steps, GAE, then
 ``update_epochs`` passes of ``num_minibatches`` clipped-loss AdamW steps over
 the flattened trajectory.  The env runs as ``LogWrapper(AutoReset(env))``:
-the port's env is batched natively.  The JAX package's scans are Python
+the port's env is batched natively.  With ``scenario_params`` (a stack from
+``scenarios.stack_params``) one agent trains across S scenarios, the envs in
+S contiguous blocks of ``num_envs // S``, with one copy of each table per
+scenario (``scenarios.expand_params``).  The JAX package's scans are Python
 loops here; nothing inside the rollout or the minibatch loop waits for the
 device, and the metrics stay on the device until the caller reads them.
 Hyperparameter defaults are the paper's Table 3.
@@ -41,6 +44,7 @@ from repro_torch.optim import (
 )
 from repro_torch.rl import networks
 from repro_torch.rl.networks import ActorCritic
+from repro_torch.scenarios.stacking import expand_params, num_scenarios
 from repro_torch.utils import resolve_device
 
 Tensor = torch.Tensor
@@ -194,7 +198,9 @@ class PPOTrain:
     """The training run :func:`make_train` builds: ``train(rng, params=None)``.
 
     ``init``, ``rollout``, ``advantages``, ``learn`` and ``metrics`` are its
-    parts, in the order :meth:`update` runs them.
+    parts, in the order :meth:`update` runs them.  ``lowered_env_params`` are
+    the params every step reads; ``scenario_shape`` is ``(S, num_envs // S)``
+    when training across a scenario stack, else None.
     """
 
     def __init__(
@@ -207,7 +213,9 @@ class PPOTrain:
     ):
         self.config = config
         self.env = env
-        self.env_params = env_params
+        self.lowered_env_params = env_params
+        n_scen = num_scenarios(env_params)
+        self.scenario_shape = None if n_scen is None else (n_scen, config.num_envs // n_scen)
         self.device = device
         self.wenv = LogWrapper(AutoReset(env), metrics=tuple(kpi_metrics))
         self.n_heads = env.action_space.shape[-1]
@@ -240,7 +248,7 @@ class PPOTrain:
         net = copy.deepcopy(params).to(self.device)
         opt_state = adamw_init(dict(net.named_parameters()))
         obs, env_state = self.wenv.reset(
-            reset_rng, self.env_params, num_envs=self.config.num_envs
+            reset_rng, self.lowered_env_params, num_envs=self.config.num_envs
         )
         return RunnerState(net, opt_state, env_state, obs, cursor, 0)
 
@@ -271,7 +279,7 @@ class PPOTrain:
                 else:
                     action = networks.sample_action(out.logits, rng)
                     env_rng = rng
-                ts = self.wenv.step(env_rng, env_state, action, self.env_params)
+                ts = self.wenv.step(env_rng, env_state, action, self.lowered_env_params)
                 traj.obs[t] = obs
                 traj.action[t] = action
                 traj.value[t] = out.value
@@ -415,6 +423,7 @@ def make_train(
     env_params: EnvParams | None = None,
     kpi_metrics: tuple[str, ...] = DEFAULT_KPI_METRICS,
     *,
+    scenario_params: EnvParams | None = None,
     device: torch.device | str | None = None,
 ) -> PPOTrain:
     """Build the training run: ``train(rng, params=None) -> {runner_state, metrics}``.
@@ -422,6 +431,11 @@ def make_train(
     ``device`` (the card unless named) must be the env's device.  ``rng`` is
     a ``torch.Generator`` on it, or a :class:`ReplayDraws` (then pass the
     starting weights as ``params``; they are copied, never changed).
+
+    ``scenario_params``, a stack of S scenarios (``scenarios.stack_params``),
+    trains one agent across them: env ``b`` runs scenario ``b // (num_envs //
+    S)``, so every rollout mixes all S worlds and the minibatches interleave
+    them, while the device holds one copy of each scenario's tables.
     """
     device = resolve_device(device)
     if env.device != device:
@@ -431,5 +445,10 @@ def make_train(
             f"batch of {config.batch_size} transitions does not split into "
             f"{config.num_minibatches} minibatches"
         )
-    env_params = env_params if env_params is not None else env.default_params
+    if scenario_params is not None:
+        if env_params is not None:
+            raise ValueError("pass either env_params or scenario_params, not both")
+        env_params = expand_params(scenario_params, config.num_envs)
+    else:
+        env_params = env_params if env_params is not None else env.default_params
     return PPOTrain(config, env, env_params, tuple(kpi_metrics), device)

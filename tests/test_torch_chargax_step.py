@@ -404,3 +404,53 @@ def test_cuda_kernel_copies_misaligned_slabs_and_runs_in_one_wave():
     per_sm, blocks = ops.blocks_per_sm(16384, 17, 3)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     assert blocks <= per_sm * sms, (per_sm, sms, blocks)
+
+
+@pytest.mark.cuda
+def test_cuda_stacked_scenarios_step_through_the_kernel():
+    """A scenario stack on the card (the V2G mix with a 300 kW feeder
+    world in place of its fourth) launches the kernel once a step, with
+    per-env caps that bind in one scenario's envs, and agrees with the same
+    stack stepped on the CPU on the same actions and draws."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the chargax_step kernel has no CPU mode")
+    from repro_torch import scenarios
+    from repro_torch.core import sampling
+    from repro_torch.utils import replace
+
+    names = scenarios.V2G_MIXED_PACK[:3] + ("grid_tight_transformer",)
+    config = EnvConfig(allow_v2g=True, fused_step=True)
+    envs = [ChargaxEnv(config, device=d) for d in ("cuda", "cpu")]
+    params = [
+        scenarios.expand_params(
+            scenarios.stack_params([scenarios.make(n).make_params(e) for n in names]), 16
+        )
+        for e in envs
+    ]
+    gen = torch.Generator().manual_seed(7)
+    reset = sampling.draw_reset(params[1], 16, gen)
+    (_, state_d), (_, state_c) = (
+        e.reset(sampling.ResetDraws(day=reset.day.to(e.device)), p) for e, p in zip(envs, params)
+    )
+    # from midday, when the 300 kW feeder binds
+    state_d, state_c = (replace(s, t=s.t + 144) for s in (state_d, state_c))
+    violation = torch.zeros(16)
+    for step in range(12):
+        action = torch.randint(10, 21, (16, envs[1].num_action_heads), generator=gen)
+        draws = sampling.draw_arrivals(params[1], state_c, gen)
+        before = ops.chargax_step.launches
+        ts_d = envs[0].step(
+            sampling.ArrivalDraws(**{k: getattr(draws, k).cuda() for k in draws.__dataclass_fields__}),
+            state_d, action.cuda(), params[0],
+        )
+        torch.cuda.synchronize()
+        assert ops.chargax_step.launches == before + 1
+        ts_c = envs[1].step(draws, state_c, action, params[1])
+        for name in ("obs", "reward"):
+            np.testing.assert_allclose(
+                getattr(ts_d, name).cpu().numpy(), getattr(ts_c, name).numpy(),
+                rtol=1e-4, atol=1e-3, err_msg=f"step {step} {name}",
+            )
+        violation += ts_c.info["grid/violation"]
+        state_d, state_c = ts_d.state, ts_c.state
+    assert (violation[12:] > 0).all() and (violation[:12] == 0).all()

@@ -42,11 +42,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro import scenarios as jscenarios
 from repro.rl import BASELINES as JAX_BASELINES
 from repro.rl import PPOConfig as JaxPPOConfig
 from repro.rl import make_train as jax_make_train
 from repro.rl import networks as jnet
-from repro_torch import convert
+from repro_torch import convert, scenarios
 from repro_torch.core.sampling import ResetDraws
 from repro_torch.launch import rl_train
 from repro_torch.rl import BASELINES, networks
@@ -118,13 +119,24 @@ class _ArrivalState(NamedTuple):
 
 
 @functools.cache
-def _jax_run():
-    """JAX's training run and every draw it made, as numpy."""
-    jenv, tenv = env_pair("paper_16", True)
+def _jax_run(mode: str = "direct", scenario_names: tuple[str, ...] = ()):
+    """JAX's training run and every draw it made, as numpy.  With
+    ``scenario_names`` it trains across their stack (``scenario_params``),
+    env ``b`` in scenario ``b // (num_envs // S)``, and each env's arrival
+    draws are replayed under its scenario's params."""
+    jenv, tenv = env_pair("paper_16", True, mode)
     cfg = JaxPPOConfig(**CFG)
-    params = jenv.default_params
     b, t_steps, ep = cfg.num_envs, cfg.rollout_steps, jenv.config.episode_steps
-    n_days = params.price_buy_table.shape[0]
+    if scenario_names:
+        stacked = jscenarios.stack_params(
+            [jscenarios.make(n).make_params(jenv) for n in scenario_names]
+        )
+        scen = jnp.arange(b) // (b // len(scenario_names))
+        params = jax.tree_util.tree_map(lambda x: x[scen], stacked)
+        params_axis = 0
+    else:
+        stacked, params, params_axis = None, jenv.default_params, None
+    n_days = jenv.default_params.price_buy_table.shape[0]
     heads, levels = jenv.num_action_heads, jenv.num_actions_per_head
 
     def reset_days(key):
@@ -145,7 +157,7 @@ def _jax_run():
             k_step, k_rst = jax.random.split(k_env)
             k_arr = jax.vmap(lambda k: jax.random.split(k)[1])(jax.random.split(k_step, b))
             t = jnp.full((b,), s % ep, jnp.int32)
-            draws = jax.vmap(replay_arrive_draws, in_axes=(None, 0, 0))(
+            draws = jax.vmap(replay_arrive_draws, in_axes=(params_axis, 0, 0))(
                 params, _ArrivalState(occupied, t, day), k_arr
             )
             new_days = reset_days(k_rst)
@@ -160,10 +172,16 @@ def _jax_run():
         return net, day0, steps, perms
 
     key = jax.random.key(0)
-    out = jax.jit(jax_make_train(cfg, jenv))(key)
+    train = jax_make_train(cfg, jenv, scenario_params=stacked)
+    out = jax.jit(train)(key)
     net0, day0, steps, perms = jax.jit(replay)(key)
     to_np = functools.partial(jax.tree_util.tree_map, np.asarray)
-    return to_np(out["metrics"]), to_np(out["runner_state"].params), to_np((net0, day0, steps, perms))
+    return (
+        to_np(out["metrics"]),
+        to_np(out["runner_state"].params),
+        to_np((net0, day0, steps, perms)),
+        train.scenario_shape,
+    )
 
 
 def _replay_draws(day0, steps, perms) -> ReplayDraws:
@@ -183,18 +201,26 @@ def _replay_draws(day0, steps, perms) -> ReplayDraws:
 
 
 @functools.cache
-def _port_run():
-    metrics_j, final_j, (net0_j, day0, steps, perms) = _jax_run()
-    _, tenv = env_pair("paper_16", True)
+def _port_run(mode: str = "direct", scenario_names: tuple[str, ...] = ()):
+    """The port's run on JAX's weights and draws; with ``scenario_names``
+    across their stack, lowered and stacked by the port."""
+    metrics_j, final_j, (net0_j, day0, steps, perms), _ = _jax_run(mode, scenario_names)
+    _, tenv = env_pair("paper_16", True, mode)
     heads = tenv.num_action_heads
     net0 = convert.actor_critic_from_numpy(net0_j, heads, device="cpu")
-    train = make_train(PPOConfig(**CFG), tenv, device="cpu")
+    stacked = None
+    if scenario_names:
+        stacked = scenarios.stack_params(
+            [scenarios.make(n).make_params(tenv) for n in scenario_names]
+        )
+    train = make_train(PPOConfig(**CFG), tenv, scenario_params=stacked, device="cpu")
     out = train(_replay_draws(day0, steps, perms), params=net0)
-    return metrics_j, out, net0, convert.actor_critic_from_numpy(final_j, heads, device="cpu")
+    final = convert.actor_critic_from_numpy(final_j, heads, device="cpu")
+    return metrics_j, out, net0, final, train
 
 
-def test_make_train_update_metrics_match_jax():
-    metrics_j, out, _, _ = _port_run()
+def assert_metrics_match(metrics_j, out):
+    """Every metric of one update within METRIC_TOL of JAX's."""
     metrics_t = out["metrics"]
     assert set(metrics_t) == set(metrics_j)
     errs = {}
@@ -204,14 +230,13 @@ def test_make_train_update_metrics_match_jax():
         errs[k] = float(np.abs(got - want).max())
         np.testing.assert_allclose(got, want, err_msg=k, **METRIC_TOL)
     print("largest metric errors:", {k: f"{v:.3g}" for k, v in errs.items()})
-    # the rollout crossed the end of the first episode
-    assert float(metrics_t["episode_length"][0]) == 288.0
-    assert out["runner_state"].update_idx == 1
-    assert out["runner_state"].opt_state.step == 4
 
 
-def test_make_train_update_of_every_weight_matches_jax():
-    _, out, net0, final_j = _port_run()
+def update_errors(out, net0, final_j) -> tuple[int, int, float, float]:
+    """The update of every weight (after - before) against JAX's: the
+    elements outside UPDATE_TOL, the elements JAX leaves at zero, the
+    largest error and the largest move.  Every element stays within
+    2·lr·steps, and a zero update on one side is zero on both."""
     lr = PPOConfig().lr
     steps = CFG["update_epochs"] * CFG["num_minibatches"]
     init = dict(net0.named_parameters())
@@ -230,6 +255,23 @@ def test_make_train_update_of_every_weight_matches_jax():
         moved = max(moved, float(np.abs(want).max()))
         assert (err <= 2 * lr * steps).all(), name
     print(f"update: {outside} elements outside the tight tolerance, largest error {worst:.3g}")
+    return outside, zero_cols, worst, moved
+
+
+def test_make_train_update_metrics_match_jax():
+    metrics_j, out, _, _, _ = _port_run()
+    assert_metrics_match(metrics_j, out)
+    metrics_t = out["metrics"]
+    # the rollout crossed the end of the first episode
+    assert float(metrics_t["episode_length"][0]) == 288.0
+    assert out["runner_state"].update_idx == 1
+    assert out["runner_state"].opt_state.step == 4
+
+
+def test_make_train_update_of_every_weight_matches_jax():
+    _, out, net0, final_j, _ = _port_run()
+    lr = PPOConfig().lr
+    outside, zero_cols, worst, moved = update_errors(out, net0, final_j)
     assert outside <= HANDFUL
     # the v2g-debt features are zero without v2g, so their first-layer weights
     # never move
