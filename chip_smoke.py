@@ -134,13 +134,39 @@ Phases, in order (any failure raises and the script exits non-zero):
 24. catalog sweep: evaluate's episodes (``run_episodes``, ``params_axis=0``)
    over all 25 catalog scenarios stacked, one episode each, under phase
    23's greedy policy: exactly 288 ``chargax_step`` launches, the
-   per-scenario profit and the episode's ms.
+   per-scenario profit and the episode's ms;
+25. fleet, card against CPU: 16 fleets of ``benchmarks/fleet_throughput.py``'s
+   mix (paper_16, deep_4x4, single_dc_8 under shopping_pv_tou,
+   work_solar_summer, highway_demand_charge; 48 stations padded to 16 EVSEs
+   and 5 nodes, fused step) through a 288-step episode under random actions
+   on the card (exactly 288 ``chargax_step`` launches: one a step with the
+   three stations' pole packs), then on the CPU with the card's draws, held
+   env by env as phase 22 (at most 4 of 48 may leave); then the kernel
+   against ``fused_step_ref`` on 8 slab sets captured from it, with the
+   packs and per-station caps that bind, at phase 3's tolerance;
+26. the fleet at full size: 5461 fleets of the mix (16383 stations, obs_dim
+   137), one 288-step episode under random actions after a warm-up: exactly
+   288 ``chargax_step`` launches and no other kernel of ours, the clock
+   tables one copy per scenario (leading axis 3), station-steps/s by CUDA
+   events, peak memory, a profiled episode (device busy ms and kernels a
+   step, idle share); then the kernel at that size with the 3 packs in one
+   launch (design (b)) against 3 single-pack launches over grouped slabs
+   (design (a)) and the plain version, its bound, blocks per SM and waves
+   (one, or it fails);
+27. coupled fleets, on the staged route (no ``chargax_step`` launch): 4096
+   fleets of 2 x paper_16 sharing grid_tight_transformer's 300 kW feeder at
+   high traffic, max-charge from midday for 16 steps (every fleet's draw
+   within the cap, which binds); ``sweep_layouts`` of the
+   ``examples/city_rollout.py`` fleet under city_ring_evening over 4096
+   candidate layouts (ring, grid, clustered and 4093 drawn in the 5 km disc
+   from numpy seed 0), one episode under max-charge: ms, profit range, best,
+   and one step's ``rates + overflow == stream`` per fleet within 1e-4.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and before that a ``{"kernels": [...]}``
 line with all four kernels (``chargax_step``'s launches summed over the
-episode of phase 4, the training of phases 20 and 23 and the sweep of
-phase 24).  Needs the repository's
+episode of phase 4, the training of phases 20 and 23, the sweep of phase 24
+and the fleet phases 25-27, by path, with the fleet route's pack times).  Needs the repository's
 ``src/`` beside this file.  Every path runs at its full depth.
 """
 from __future__ import annotations
@@ -166,13 +192,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs.registry import build_model, get_config  # noqa: E402
-from repro_torch import scenarios  # noqa: E402
-from repro_torch.core import ChargaxEnv, EnvConfig, sampling, transition  # noqa: E402
+from repro_torch import city, scenarios  # noqa: E402
+from repro_torch.core import ChargaxEnv, EnvConfig, FleetEnv, sampling, transition  # noqa: E402
 from repro_torch.distributed.train_step import make_prefill_step, make_serve_step  # noqa: E402
 from repro_torch.envs import AutoReset  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.chargax_step import ops  # noqa: E402
-from repro_torch.kernels.chargax_step.ref import BIG, PoleSlabs, fused_step_ref  # noqa: E402
+from repro_torch.kernels.chargax_step.ref import BIG, PolePacks, PoleSlabs, fused_step_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import mha_blocked  # noqa: E402
 from repro_torch.kernels.mamba2_ssd import ops as ssd_ops  # noqa: E402
@@ -263,6 +289,22 @@ PPO_ENVS_OFF = 8
 # scenario of the 4-scenario V2G mix) and PPO updates across the mix
 MIX_CHECK_ENVS = 64
 MIX_UPDATES = 4
+# the fleet phases (25-27): the mix of benchmarks/fleet_throughput.py, padded
+# to 16 EVSEs + battery (P = 17) and 5 nodes; 16 fleets for the card-vs-CPU
+# episode (48 stations), 5461 at full size (16383 stations)
+FLEET_ARCHS = ("paper_16", "deep_4x4", "single_dc_8")
+FLEET_SCENARIOS = ("shopping_pv_tou", "work_solar_summer", "highway_demand_charge")
+FLEET_CHECK_REPLICAS = 16
+FLEET_ENVS_OFF = 4  # of the 48 stations, as phase 22's rule
+FLEET_REPLICAS = 5461
+# phase 27: grid_tight_transformer's 300 kW feeder shared by 2 x paper_16
+# (E = 4096 fleets), and the examples/city_rollout.py fleet under
+# city_ring_evening with K = 4096 candidate layouts
+GRID_FEEDER_KW = 300.0
+GRID_REPLICAS = 4096
+CITY_ARCHS = ("paper_16", "deep_4x4", "single_dc_8", "paper_16")
+CITY_SCENARIO = "city_ring_evening"
+CITY_CANDIDATES = 4096
 
 
 def check(cond: bool, msg: str) -> None:
@@ -957,11 +999,14 @@ def wkv_kernel_time(dev: torch.device, lib: Path) -> dict:
     return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
-def chargax_bound(b: int, p: int, nn: int) -> tuple[float, str, int, int]:
+def chargax_bound(b: int, p: int, nn: int, n_packs: int | None = None) -> tuple[float, str, int, int]:
     """Least time of one chargax_step on the card: 7 slabs read and 5
-    written once, the cap read and excess/p_req written once, the (P,) and
-    (Nn,) params read once, against its float operations at the fp32 rate."""
-    n_bytes = 4 * (b * p * 12 + 3 * b + 4 * p + 2 * nn)
+    written once, the cap read and excess/p_req written once, each pack's
+    four (P,) rows, (Nn, P) membership and (Nn,) budgets read once (one
+    pack, or ``n_packs`` and the (B,) int32 pack index), against its float
+    operations at the fp32 rate."""
+    k = 1 if n_packs is None else n_packs
+    n_bytes = 4 * (b * p * 12 + 3 * b + k * (4 * p + nn * p + nn) + (0 if n_packs is None else b))
     n_ops = b * p * (OPS_PER_POLE + OPS_PER_POLE_NODE * nn)
     bytes_ms = n_bytes / PEAK_HBM_BYTES_PER_S * 1000.0
     ops_ms = n_ops / PEAK_FP32_OPS_PER_S * 1000.0
@@ -1478,6 +1523,313 @@ def catalog_sweep(env: ChargaxEnv, net) -> dict:
     return {"episode_ms": episode_ms, "profit": dict(zip(names, profit)), "launches": counts["chargax_step"]}
 
 
+def fleet_card_vs_cpu(dev: torch.device) -> dict:
+    """Phase 25: FLEET_CHECK_REPLICAS fleets of the 3-architecture mix under
+    its 3 scenarios (48 stations, fused step) through a 288-step episode on
+    the card under random actions, then on the CPU with the card's draws
+    replayed, held env by env as phase 22 holds them; then ``chargax_step``
+    against ``fused_step_ref`` on slabs captured from the card's rollout, with
+    the per-station packs and caps at 0.3 / 0.5 / 0.7 of each station's
+    requested power, which bind."""
+    fleets = [
+        FleetEnv(FLEET_ARCHS, EnvConfig(fused_step=True), scenarios=FLEET_SCENARIOS,
+                 replicas=FLEET_CHECK_REPLICAS, device=d)
+        for d in (dev, "cpu")
+    ]
+    params_d, params_c = (f.default_params for f in fleets)
+    check(isinstance(params_d.pole, PolePacks) and params_d.pole.packs.member.shape == (3, 5, 17),
+          f"fleet packs {params_d.pole.packs.member.shape}")
+    b, steps, cfg = fleets[0].num_envs, fleets[0].config.episode_steps, fleets[0].config
+    gen = torch.Generator(device=dev).manual_seed(25)
+    rng = np.random.default_rng(25)
+    reset = sampling.draw_reset(params_d, b, gen)
+    _, state_d = fleets[0].reset(reset, params_d)
+    actions, draws, card, captured = [], [], [], []
+    reset_launch_counts()
+    for step in range(steps):
+        action = torch.from_numpy(rng.integers(0, cfg.discretization * 2 + 1, (b, fleets[0].num_action_heads)))
+        action_d = action.to(dev)
+        if step % 36 == 0:  # 8 captures through the day
+            tgt_evse, tgt_batt = transition.decode(
+                params_d, state_d, action_d, discretization=cfg.discretization,
+                allow_v2g=cfg.allow_v2g, action_mode=cfg.action_mode,
+            )
+            captured.append(ops.build_slabs(params_d, state_d, tgt_evse, tgt_batt))
+        drawn = sampling.draw_arrivals(params_d, state_d, gen)
+        obs, state_d, reward, done, _ = fleets[0].step(drawn, state_d, action_d, params_d)
+        actions.append(action)
+        draws.append(sampling.ArrivalDraws(**{k: getattr(drawn, k).cpu() for k in drawn.__dataclass_fields__}))
+        card.append({"obs": obs.cpu(), "reward": reward.cpu(), "done": done.cpu()}
+                    | {k: getattr(state_d, k).cpu() for k in ("occupied", "t_remain", "t", "day")})
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts == {"chargax_step": steps, "flash_attention": 0, "mamba2_ssd": 0, "rwkv6_wkv": 0},
+          f"fleet episode launches {counts}, expected {steps} chargax_step (one a step)")
+
+    _, state_c = fleets[1].reset(sampling.ResetDraws(day=reset.day.cpu()), params_c)
+    same = torch.ones((steps, b), dtype=torch.bool)
+    worst = 0.0
+    for step in range(steps):
+        obs, state_c, reward, done, _ = fleets[1].step(draws[step], state_c, actions[step], params_c)
+        got = card[step]
+        for name, want in (("obs", obs), ("reward", reward)):
+            close = torch.isclose(got[name], want, rtol=1e-4, atol=1e-3)
+            same[step] &= close.reshape(b, -1).all(-1)
+        same[step] &= got["done"] == done
+        for name in ("occupied", "t_remain", "t", "day"):
+            same[step] &= (got[name] == getattr(state_c, name)).reshape(b, -1).all(-1)
+        keep = same[: step + 1].all(0)
+        worst = max(worst, float((got["obs"][keep] - obs[keep]).abs().max()))
+    off = ~same.all(0)
+    first_off = {int(e): int((~same[:, e]).nonzero()[0]) for e in off.nonzero().flatten()}
+    check(len(first_off) <= FLEET_ENVS_OFF, f"fleet card vs cpu: {len(first_off)} of {b} stations left {first_off}")
+    print(
+        f"fleet card vs cpu: {FLEET_CHECK_REPLICAS} x {list(FLEET_ARCHS)} under {list(FLEET_SCENARIOS)} "
+        f"({b} stations, P=17, Nn=5, fused) x {steps} steps, {steps} chargax_step launches; stations "
+        f"that left the CPU's rollout at step {first_off}; largest obs error over the others {worst:.3g}"
+    )
+
+    pp = params_d.pole
+    frac = torch.tensor([0.3, 0.5, 0.7], device=dev)[pp.index.long()]
+    max_err, bound_envs = 0.0, 0
+    for slabs in captured:
+        cap = frac * fused_step_ref(slabs, pp, cfg.dt_hours).p_req.clamp_min(1.0)
+        for c in (None, cap):
+            got = ops.chargax_step(slabs, pp, cfg.dt_hours, c)
+            want = fused_step_ref(slabs, pp, cfg.dt_hours, c)
+            torch.cuda.synchronize()
+            for name, g, w in zip(got._fields, got, want):
+                check(bool(torch.isfinite(g).all()), f"fleet captured slabs {name}: not finite")
+                err = float((g - w).abs().max())
+                check(torch.allclose(g, w, **TOL), f"fleet captured slabs {name}: max abs err {err}")
+                max_err = max(max_err, err)
+        bound_envs += int((want.p_req > cap).sum())
+    check(bound_envs > 0, "the per-station caps never bind")
+    print(
+        f"kernel vs plain on {len(captured)} captured fleet slab sets (B={b}, P=17, Nn=5, K=3 packs): "
+        f"per-station caps binding in {bound_envs} env-steps, max abs err {max_err:.3g}"
+    )
+    return {"stations_off": len(first_off), "obs_max_abs_err": worst, "kernel_max_abs_err": max_err,
+            "launches": counts["chargax_step"]}
+
+
+def fleet_episode(fleet: FleetEnv, params, gen: torch.Generator) -> object:
+    """One episode of ``fleet`` under uniformly random actions."""
+    _, state = fleet.reset(gen, params)
+    shape = (fleet.num_envs, fleet.num_action_heads)
+    for _ in range(fleet.config.episode_steps):
+        action = torch.randint(0, fleet.num_actions_per_head, shape, generator=gen, device=fleet.device)
+        _, state, _, _, _ = fleet.step(gen, state, action, params)
+    return state
+
+
+def fleet_pack_times(dev: torch.device, fleet: FleetEnv) -> dict:
+    """Phase 26's kernel times at the fleet's size: design (b), one launch
+    over the interleaved stations with the 3 packs, against design (a), one
+    single-pack launch per architecture over its stations' contiguous slabs
+    (the slabs grouped beforehand, which (a) would also have to pay for each
+    step), and the plain version; inputs rotated past the L2."""
+    params = fleet.default_params
+    pp, dt = params.pole, fleet.config.dt_hours
+    b = fleet.num_envs
+    env = ChargaxEnv(EnvConfig(fused_step=True), device=dev)
+    rows = random_slabs(env, b, seed=26)  # (B, 17)
+    mask = torch.cat([params.evse_mask, torch.ones(b, 1, device=dev)], 1)
+    slabs = rows._replace(occupied=rows.occupied * mask)
+    cap = torch.full((b,), 1e9, device=dev)
+    k = pp.packs.member.shape[0]
+    groups = [torch.nonzero(pp.index == i).flatten() for i in range(k)]
+    singles = [ops.PoleParams(*(x[i] for x in pp.packs)) for i in range(k)]
+
+    def grouped(s):
+        return [PoleSlabs(*(x[g].contiguous() for x in s)) for g in groups]
+
+    copies_b = [(PoleSlabs(*(x.clone() for x in slabs)), pp, dt, cap.clone()) for _ in range(8)]
+    copies_a = [(grouped(c[0]), [cap[g].contiguous() for g in groups]) for c in copies_b]
+
+    def design_a(parts, caps):
+        return [ops.chargax_step(s, one, dt, c) for s, one, c in zip(parts, singles, caps)]
+
+    for a_args, b_args in zip(copies_a[:1], copies_b[:1]):  # the two designs agree
+        got_b = ops.chargax_step(*b_args)
+        for g, part in zip(groups, design_a(*a_args)):
+            for x, y in zip(got_b, part):
+                check(torch.equal(x[g], y), "design (a) and (b) disagree")
+    # (b) against the plain version on these inputs, unlimited and with binding
+    # per-station caps at 0.3 / 0.5 / 0.7 of each station's request
+    frac = torch.tensor([0.3, 0.5, 0.7], device=dev)[pp.index.long()]
+    max_err, bound_envs = 0.0, 0
+    for s in (copies_b[0][0], copies_b[1][0]):
+        want_free = fused_step_ref(s, pp, dt)
+        binding = frac * want_free.p_req.clamp_min(1.0)
+        for c in (None, binding):
+            got = ops.chargax_step(s, pp, dt, c)
+            want = fused_step_ref(s, pp, dt, c)
+            torch.cuda.synchronize()
+            for name, g, w in zip(got._fields, got, want):
+                check(bool(torch.isfinite(g).all()), f"fleet kernel B={b} {name}: not finite")
+                err = float((g - w).abs().max())
+                check(torch.allclose(g, w, **TOL), f"fleet kernel B={b} {name}: max abs err {err}")
+                max_err = max(max_err, err)
+        bound_envs += int((want_free.p_req > binding).sum())
+    check(bound_envs > 0, f"fleet kernel B={b}: the per-station caps never bind")
+    print(
+        f"fleet kernel vs plain at B={b}, P=17, Nn=5, K={k} (last block partial): unlimited and "
+        f"per-station caps binding in {bound_envs} envs, max abs err {max_err:.3g}"
+    )
+    packed_ms = time_ms(ops.chargax_step, copies_b)
+    per_arch_ms = time_ms(design_a, copies_a)
+    plain_ms = time_ms(fused_step_ref, copies_b)
+    per_sm, blocks = ops.blocks_per_sm(b, 17, 5, n_packs=k)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    waves = math.ceil(blocks / (per_sm * sms))
+    check(waves == 1, f"packed chargax_step takes {waves} waves at B={b}")
+    for n_packs in (None, k):
+        want_bytes, got_bytes = ops.kernel_smem_bytes(17, 5, n_packs), ops.smem_bytes(17, 5, n_packs)
+        check(want_bytes == got_bytes, f"wrapper counts {got_bytes} bytes of shared memory, the kernel {want_bytes}")
+    bound_ms, bound_by, n_bytes, n_ops = chargax_bound(b, 17, 5, k)
+    print(
+        f"fleet kernel time B={b} P=17 Nn=5: (b) one launch with {k} packs {packed_ms:.5f} ms, "
+        f"(a) {k} single-pack launches {per_arch_ms:.5f} ms, plain {plain_ms:.5f} ms, bound "
+        f"{bound_ms:.5f} ms by {bound_by} ({n_bytes} bytes, {n_ops} ops), achieved "
+        f"{bound_ms / packed_ms:.4f} of bound; {per_sm} blocks per SM x {sms} SMs for {blocks} "
+        f"blocks = {waves} wave(s); kept: {'(b)' if packed_ms <= per_arch_ms else '(a) would be faster'}"
+    )
+    return dict(ms=packed_ms, per_arch_ms=per_arch_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, blocks_per_sm=per_sm, waves=waves, max_abs_err=max_err)
+
+
+def fleet_full_size(dev: torch.device) -> dict:
+    """Phase 26: FLEET_REPLICAS fleets of the mix (16383 stations, fused step),
+    one 288-step episode under random actions after a warm-up episode, timed
+    by CUDA events with the kernel counts reset just before and read just
+    after; the clock tables one copy per scenario; a profiled episode; then
+    the kernel's pack designs timed."""
+    fleet = FleetEnv(FLEET_ARCHS, EnvConfig(fused_step=True), scenarios=FLEET_SCENARIOS,
+                     replicas=FLEET_REPLICAS, device=dev)
+    params = fleet.default_params
+    b, steps = fleet.num_envs, fleet.config.episode_steps
+    for field in ("price_buy_table", "pv_kw_table", "grid_cap_kw_table", "grid_setpoint_kw_table", "car_probs"):
+        shape = tuple(getattr(params, field).shape)
+        check(shape[0] == len(FLEET_SCENARIOS), f"fleet {field} has shape {shape}: not one copy per scenario")
+    check(fleet.obs_dim == 137, f"fleet obs_dim {fleet.obs_dim}")
+    gen = torch.Generator(device=dev).manual_seed(26)
+    fleet_episode(fleet, params, gen)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    state = fleet_episode(fleet, params, gen)
+    end.record()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts == {"chargax_step": steps, "flash_attention": 0, "mamba2_ssd": 0, "rwkv6_wkv": 0},
+          f"fleet episode launches {counts}, expected exactly {steps} chargax_step")
+    check(bool(torch.isfinite(state.profit_cum).all()) and bool((state.t == steps).all()), "fleet episode state")
+    episode_ms = start.elapsed_time(end)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    rate = b * steps / (episode_ms / 1000.0)
+    prof = profile_device(lambda: fleet_episode(fleet, params, gen), 1, episode_ms, cpu_ops=False)
+    per_step = {k: prof[k] / steps for k in ("device_kernels_per_call",) if prof[k] is not None}
+    busy = prof["device_busy_ms_per_call"]
+    print(
+        f"fleet: {FLEET_REPLICAS} x {list(FLEET_ARCHS)} = {b} stations x {steps} steps in "
+        f"{episode_ms:.2f} ms = {rate:.0f} station-steps/s, chargax_step launches "
+        f"{counts['chargax_step']}, peak memory {peak_gib:.3f} GiB, tables "
+        f"{tuple(params.price_buy_table.shape)}; profile: device busy "
+        f"{busy if busy is None else round(busy / steps, 5)} ms a step, idle share "
+        f"{prof['device_idle_share']}, {per_step.get('device_kernels_per_call')} kernels a step"
+    )
+    times = fleet_pack_times(dev, fleet)
+    return {"stations": b, "episode_ms": episode_ms, "station_steps_per_s": rate, "peak_memory_gib": peak_gib,
+            "launches": counts["chargax_step"], "profile": prof, "kernels_per_step": per_step,
+            "kernel": times}
+
+
+def coupled_fleets(dev: torch.device) -> dict:
+    """Phase 27, both on the staged route (no chargax_step launch): (i)
+    GRID_REPLICAS fleets of 2 x paper_16 sharing grid_tight_transformer's
+    300 kW feeder at high traffic, max-charge from midday for 16 steps:
+    every fleet's summed draw within the cap, which binds; (ii)
+    ``sweep_layouts`` over CITY_CANDIDATES candidate layouts of the
+    city_rollout fleet under city_ring_evening, one episode under
+    max-charge: profit range and best, and one step's conservation
+    ``rates + overflow == stream`` per fleet."""
+    sc = scenarios.make("grid_tight_transformer").evolve(traffic="high")
+    grid = FleetEnv(["paper_16", "paper_16"], scenarios=[sc, sc], couple_grid=True,
+                    replicas=GRID_REPLICAS, device=dev)
+    params = grid.default_params
+    gen = torch.Generator(device=dev).manual_seed(27)
+    _, state = grid.reset(gen, params)
+    state = replace(state, t=torch.full_like(state.t, grid.config.steps_per_day // 2))
+    d = grid.config.discretization
+    action = torch.full((grid.num_envs, grid.num_action_heads), 2 * d, device=dev)
+    action[:, -1] = d
+    reset_launch_counts()
+    worst, binding = 0.0, 0
+    for _ in range(16):
+        _, state, _, _, info = grid.step(gen, state, action, params)
+        drawn = info["grid/power_drawn"].reshape(GRID_REPLICAS, 2).sum(1)
+        worst = max(worst, float(drawn.max()))
+        binding += int((info["grid/violation"].reshape(GRID_REPLICAS, 2).sum(1) > 0).sum())
+    torch.cuda.synchronize()
+    check(worst <= GRID_FEEDER_KW * (1.0 + 1e-5), f"a fleet drew {worst} kW over its {GRID_FEEDER_KW} kW feeder")
+    check(binding > 0, "the shared feeder never binds")
+    print(
+        f"grid-coupled fleets: {GRID_REPLICAS} x 2 paper_16 under grid_tight_transformer (high traffic), "
+        f"16 max-charge steps from midday: largest fleet draw {worst:.3f} kW of {GRID_FEEDER_KW}, "
+        f"binding in {binding} fleet-steps"
+    )
+
+    fleet = FleetEnv(CITY_ARCHS, city=CITY_SCENARIO, device=dev)
+    n = len(CITY_ARCHS)
+    # the named layouts, then explicit ones drawn uniformly in the 5 km disc
+    rng = np.random.default_rng(0)
+    rad = 5.0 * np.sqrt(rng.random((CITY_CANDIDATES - 3, n)))
+    ang = 2.0 * np.pi * rng.random((CITY_CANDIDATES - 3, n))
+    explicit = np.stack([rad * np.cos(ang), rad * np.sin(ang)], -1).astype(np.float32)
+    cities = [city.make_city(CITY_SCENARIO, n, layout=k, device="cpu") for k in ("ring", "grid", "clustered")]
+    cities += [city.make_city(CITY_SCENARIO, n, layout=x, device="cpu") for x in explicit]
+    stack = city.CityParams.stack(cities)
+    stack = city.CityParams(**{f.name: getattr(stack, f.name).to(dev) for f in dataclasses.fields(stack)})
+    policy = max_charge_policy(fleet.template)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = city.sweep_layouts(fleet, stack, policy, rng=torch.Generator(device=dev).manual_seed(27))
+    end.record()
+    torch.cuda.synchronize()
+    sweep_ms = start.elapsed_time(end)
+    counts = launch_counts()
+    check(counts["chargax_step"] == 0, f"coupled fleets launched chargax_step {counts['chargax_step']} times")
+    profit = out["profit"]
+    check(bool(torch.isfinite(profit).all()) and profit.shape == (CITY_CANDIDATES,), "sweep profit")
+    check(int(out["best"]) == int(torch.argmax(profit)), "sweep best")
+    swept = fleet.with_replicas(CITY_CANDIDATES)
+    sparams = swept.default_params
+    _, sstate = swept.reset(gen, sparams)
+    sstate = replace(sstate, t=torch.full_like(sstate.t, 17 * 12))  # the evening peak
+    _, _, _, _, info = swept.step_with_city(gen, sstate, policy(None, None, torch.zeros(swept.num_envs, 1, device=dev)), sparams, stack)
+    rates = info["city/arrival_rate"].reshape(CITY_CANDIDATES, n).sum(1)
+    total = rates + info["city/overflow"].reshape(CITY_CANDIDATES, n)[:, 0]
+    stream = info["city/stream"].reshape(CITY_CANDIDATES, n)[:, 0]
+    cons = float((total - stream).abs().max())
+    check(cons <= 1e-4 * max(1.0, float(stream.abs().max())), f"rates + overflow != stream by {cons}")
+    best = int(out["best"])
+    print(
+        f"city sweep: {CITY_CANDIDATES} layouts x {list(CITY_ARCHS)} under {CITY_SCENARIO} "
+        f"({CITY_CANDIDATES * n} stations), one episode in {sweep_ms:.1f} ms; profit "
+        f"{float(profit.min()):.2f}..{float(profit.max()):.2f}, best {best} (profit "
+        f"{float(profit[best]):.2f}, cars {float(out['cars_served'][best]):.0f}, overflow "
+        f"{float(out['overflow'][best]):.3f}); ring/grid/clustered "
+        + " ".join(f"{float(v):.2f}" for v in profit[:3])
+        + f"; rates + overflow - stream at most {cons:.3g}"
+    )
+    return {"grid_max_draw_kw": worst, "grid_binding_fleet_steps": binding, "sweep_ms": sweep_ms,
+            "profit_min": float(profit.min()), "profit_max": float(profit.max()), "best": best,
+            "conservation_err": cons, "launches": counts["chargax_step"]}
+
+
 def check_kpis(result: dict, label: str) -> None:
     check(all(math.isfinite(v) for v in result.values()), f"{label}: non-finite KPIs {result}")
     check(result["energy_delivered_kwh"] > 0, f"{label}: no energy delivered")
@@ -1656,7 +2008,25 @@ def main() -> int:
     lap = time.perf_counter()
     sweep = catalog_sweep(mix_env, mix_net)
     phase_s[24] = time.perf_counter() - lap
-    print("scenario phases, host s: " + " ".join(f"{k}={v:.1f}" for k, v in phase_s.items()))
+    del mix_env, mix_net
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- 25. a heterogeneous fleet, card against CPU -------------------------------------
+    lap = time.perf_counter()
+    fleet_check = fleet_card_vs_cpu(dev)
+    phase_s[25] = time.perf_counter() - lap
+
+    # --- 26. the fleet at full size ------------------------------------------------------
+    lap = time.perf_counter()
+    fleet_summary = fleet_full_size(dev)
+    phase_s[26] = time.perf_counter() - lap
+
+    # --- 27. grid and city coupling ------------------------------------------------------
+    lap = time.perf_counter()
+    coupled = coupled_fleets(dev)
+    phase_s[27] = time.perf_counter() - lap
+    print("scenario and fleet phases, host s: " + " ".join(f"{k}={v:.1f}" for k, v in phase_s.items()))
 
     metrics = {
         "env_steps_per_s": env_steps_per_s,
@@ -1673,7 +2043,9 @@ def main() -> int:
         "ppo": {**ppo_summary, "card_vs_cpu": ppo_err},
         "ppo_v2g_mix": {**mix_summary, "scenarios": mix, "stacked_card_vs_cpu": stacked_err},
         "catalog_sweep": sweep,
-        "scenario_phases_s": phase_s,
+        "fleet": {**fleet_summary, "card_vs_cpu": fleet_check},
+        "coupled_fleets": coupled,
+        "scenario_and_fleet_phases_s": phase_s,
     }
     print(json.dumps({"metrics": metrics}))
     kernels = [
@@ -1683,19 +2055,26 @@ def main() -> int:
             "source": "src/repro_torch/kernels/chargax_step/csrc/chargax_step.cu",
             "replaces": "src/repro/kernels/chargax_step/kernel.py:26",
             "launches": launches + ppo_summary["chargax_step_launches"]
-            + mix_summary["chargax_step_launches"] + sweep["launches"],
+            + mix_summary["chargax_step_launches"] + sweep["launches"] + fleet_check["launches"]
+            + fleet_summary["launches"] + coupled["launches"],
             "launches_by_path": {
                 "evaluate": launches,
                 "make_train": ppo_summary["chargax_step_launches"],
                 "make_train_v2g_mix": mix_summary["chargax_step_launches"],
                 "evaluate_catalog": sweep["launches"],
+                "fleet_card_vs_cpu": fleet_check["launches"],
+                "fleet": fleet_summary["launches"],
+                "fleet_grid_city_coupled": coupled["launches"],
             },
-            "max_abs_err": max(max_err, stacked_err["kernel_max_abs_err"]),
+            "max_abs_err": max(max_err, stacked_err["kernel_max_abs_err"], fleet_check["kernel_max_abs_err"],
+                               fleet_summary["kernel"]["max_abs_err"]),
             "ms": kernel_ms,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes this function
+            # the fleet route: one launch with 3 pole packs at 16383 stations
+            "packs": fleet_summary["kernel"],
         },
         {
             "name": "flash_attention",

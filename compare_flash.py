@@ -32,6 +32,7 @@ between designs; ``chip_smoke.py`` stays the check.  Needs a CUDA card and
 from __future__ import annotations
 
 import argparse
+import ctypes
 import functools
 import re
 import sys
@@ -87,7 +88,16 @@ def build_version(kernel: str, name: str, path: str):
         elif mangled and ("registers" in line or "spill" in line):
             print(f"  {_instance(kernel, mangled)}: {line.split(':', 1)[-1].strip()}")
     print(f"  SASS: HMMA {cs.sass_count(lib_path, 'HMMA')}, HGMMA {cs.sass_count(lib_path, 'HGMMA')}")
-    return ops.bind(lib_path)
+    return bind_chargax(lib_path) if kernel == "chargax" else ops.bind(lib_path)
+
+
+def bind_chargax(lib_path: Path) -> ctypes.CDLL:
+    """Load a chargax_step version and declare its single-pack launch, the
+    one entry point every version has (older ones lack the packed launch)."""
+    lib = ctypes.CDLL(str(lib_path))
+    lib.chargax_step_launch.argtypes = cg_ops.LAUNCH_ARGTYPES
+    lib.chargax_step_launch.restype = ctypes.c_int
+    return lib
 
 
 def _ratio(got: torch.Tensor, want: torch.Tensor, tol: dict) -> float:

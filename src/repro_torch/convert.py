@@ -12,6 +12,8 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from repro_torch.city.params import CityParams
+from repro_torch.core import fleet
 from repro_torch.core.state import EnvParams, EnvState, RewardWeights
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import CausalLM
@@ -125,6 +127,45 @@ def env_params_from_numpy(
 
     weights = RewardWeights(**{k: arr(v) for k, v in fields["weights"].items()})
     return EnvParams(**{name: arr(fields[name]) for name in _PARAM_ARRAYS}, weights=weights)
+
+
+def fleet_params_from_numpy(
+    fields: Mapping[str, Any],
+    *,
+    replicas: int = 1,
+    fused: bool = False,
+    device: torch.device | str | None = None,
+) -> EnvParams:
+    """A JAX fleet's params (``FleetEnv.default_params``: every field with
+    a leading station axis S, as numpy arrays; ``weights`` a mapping) ->
+    the port's fleet params for ``replicas`` fleets
+    (:func:`repro_torch.core.fleet.stack_params`): station fields a row per
+    env, the tables once per distinct scenario, and with ``fused`` the pole
+    packs once per distinct station (built by ``build_pole_params``)."""
+    from repro_torch.kernels.chargax_step.ops import build_pole_params
+
+    n = np.shape(fields["price_buy_table"])[0]
+    stations = []
+    for s in range(n):
+        row = {k: np.asarray(fields[k])[s] for k in _PARAM_ARRAYS}
+        row["weights"] = {k: np.asarray(v)[s] for k, v in fields["weights"].items()}
+        p = env_params_from_numpy(row, device=device)
+        stations.append(dataclasses.replace(p, pole=build_pole_params(p)) if fused else p)
+    return fleet.stack_params(stations, replicas)
+
+
+def city_from_numpy(
+    fields: Mapping[str, Any], *, device: torch.device | str | None = None
+) -> CityParams:
+    """CityParams from its fields as numpy arrays (one city, or a stack with
+    a leading axis K)."""
+    dev = resolve_device(device)
+    return CityParams(
+        **{
+            f.name: torch.as_tensor(np.array(fields[f.name], dtype=np.float32), device=dev)
+            for f in dataclasses.fields(CityParams)
+        }
+    )
 
 
 def _tensor(x) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Chargax core: the batched environment and its staged transition in PyTorch."""
 from repro_torch.core import datasets, rewards, sampling, station, transition
 from repro_torch.core.env import ChargaxEnv, EnvConfig
+from repro_torch.core.fleet import FleetEnv
 from repro_torch.core.sampling import ArrivalDraws, ResetDraws
 from repro_torch.core.state import EnvParams, EnvState, RewardWeights
 
@@ -10,6 +11,7 @@ __all__ = [
     "EnvConfig",
     "EnvParams",
     "EnvState",
+    "FleetEnv",
     "ResetDraws",
     "RewardWeights",
     "datasets",

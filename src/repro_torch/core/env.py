@@ -359,12 +359,19 @@ class ChargaxEnv(Environment):
         state: EnvState,
         alloc: AllocationResult,
         params: EnvParams | None = None,
+        arrival_rate_extra: Tensor | None = None,
     ) -> TimeStep:
         """Pipeline stages deliver -> depart_arrive -> settle -> advance_time
-        -> observe, from an :class:`AllocationResult` against ``state``."""
+        -> observe, from an :class:`AllocationResult` against ``state``.
+
+        ``arrival_rate_extra`` (B,) cars/step adds to each env's Poisson
+        arrival rate this step: the seam through which a city
+        (:mod:`repro_torch.city`) routes its stream to the stations.
+        Injected :class:`ArrivalDraws` carry their own count, which it leaves
+        as it is."""
         params = params if params is not None else self.default_params
         charged = transition.deliver(params, state, alloc.applied, self.config.dt_hours)
-        return self.settle_tail(rng, state, alloc, charged, params)
+        return self.settle_tail(rng, state, alloc, charged, params, arrival_rate_extra)
 
     def settle_tail(
         self,
@@ -373,16 +380,18 @@ class ChargaxEnv(Environment):
         alloc: AllocationResult,
         charged: transition.ChargeResult,
         params: EnvParams | None = None,
+        arrival_rate_extra: Tensor | None = None,
     ) -> TimeStep:
         """Pipeline tail shared by the staged and fused routes:
-        depart_arrive -> settle -> advance_time -> observe."""
+        depart_arrive -> settle -> advance_time -> observe
+        (``arrival_rate_extra`` as for :meth:`finish_step`)."""
         params = params if params is not None else self.default_params
         cfg = self.config
         dt = cfg.dt_hours
         if isinstance(rng, ArrivalDraws):
             draws = rng
         else:
-            draws = sampling.draw_arrivals(params, charged.state, rng)
+            draws = sampling.draw_arrivals(params, charged.state, rng, arrival_rate_extra)
         moved = transition.depart_arrive(params, charged.state, draws)
         settled = transition.settle(params, state, alloc, charged, moved, dt)
         new_state = transition.advance_time(params, moved.state, settled.profit)

@@ -14,6 +14,7 @@ only the ports a car is assigned to are used.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -41,15 +42,20 @@ class ResetDraws:
     day: Tensor  # (B,) int32
 
 
-def arrival_rate(params: EnvParams, state: EnvState) -> Tensor:
-    """Expected arrivals this step, (B,): the time-of-day rate × day scale."""
+def arrival_rate(
+    params: EnvParams, state: EnvState, rate_extra: Tensor | None = None
+) -> Tensor:
+    """Expected arrivals this step, (B,): the time-of-day rate × day scale,
+    plus ``rate_extra`` (B,) where a city routes its stream to the station
+    (:mod:`repro_torch.city`); a zero extra rate leaves the rate unchanged."""
     spd = params.arrival_rate.shape[-1]
     n_days = params.arrival_day_scale.shape[-1]
-    return scenario_rows(
+    rate = scenario_rows(
         params, params.arrival_rate, torch.remainder(state.t, spd).long()
     ) * scenario_rows(
         params, params.arrival_day_scale, torch.remainder(state.day, n_days).long()
     )
+    return rate if rate_extra is None else rate + rate_extra
 
 
 def car_probs(params: EnvParams, day: Tensor) -> Tensor:
@@ -61,15 +67,25 @@ def car_probs(params: EnvParams, day: Tensor) -> Tensor:
 
 
 def draw_arrivals(
-    params: EnvParams, state: EnvState, generator: torch.Generator
+    params: EnvParams,
+    state: EnvState,
+    generator: torch.Generator,
+    rate_extra: Tensor | None = None,
 ) -> ArrivalDraws:
-    """Draw one step's arrivals from ``generator`` (on the state's device)."""
-    b, n = state.occupied.shape
-    dev = state.occupied.device
-    m = torch.poisson(arrival_rate(params, state), generator=generator)
-    model = torch.multinomial(
-        car_probs(params, state.day), n, replacement=True, generator=generator
-    )
+    """Draw one step's arrivals from ``generator`` (on the state's device),
+    the Poisson count at :func:`arrival_rate` with ``rate_extra``."""
+    m = torch.poisson(arrival_rate(params, state, rate_extra), generator=generator)
+    return draw_cars(params, state.day, state.occupied.shape[1], m.to(torch.int32), generator)
+
+
+def draw_cars(
+    params: EnvParams, day: Tensor, n: int, m: Tensor, generator: torch.Generator
+) -> ArrivalDraws:
+    """The arrivals' per-port draws for envs on ``day`` (B,) with ``n``
+    ports, beside their given counts ``m``: none of these depends on the
+    arrival rate."""
+    b, dev = day.shape[0], day.device
+    model = torch.multinomial(car_probs(params, day), n, replacement=True, generator=generator)
     z_stay = torch.randn((b, n), generator=generator, device=dev)
     # Beta(a, b) as X / (X + Y) with X ~ Gamma(a), Y ~ Gamma(b)
     def ports(field: Tensor) -> Tensor:
@@ -78,17 +94,23 @@ def draw_arrivals(
     x = torch._standard_gamma(ports(params.soc0_a), generator=generator)
     y = torch._standard_gamma(ports(params.soc0_b), generator=generator)
     z_tgt = torch.randn((b, n), generator=generator, device=dev)
-    bern = torch.bernoulli(
-        ports(params.p_time_sensitive), generator=generator
-    )
-    return ArrivalDraws(
-        m=m.to(torch.int32),
-        model=model,
-        z_stay=z_stay,
-        soc0=x / (x + y),
-        z_tgt=z_tgt,
-        bern=bern > 0.5,
-    )
+    bern = torch.bernoulli(ports(params.p_time_sensitive), generator=generator)
+    return ArrivalDraws(m=m, model=model, z_stay=z_stay, soc0=x / (x + y), z_tgt=z_tgt, bern=bern > 0.5)
+
+
+def poisson_quantile(u: Tensor, rate: Tensor) -> Tensor:
+    """The Poisson(``rate``) count whose CDF first reaches ``u`` (B,), int32:
+    a Poisson draw from a uniform one.  Counts drawn from one ``u`` at two
+    rates differ only through the rates (common random numbers)."""
+    lam, u = rate.double(), u.double()
+    p = torch.exp(-lam)
+    cdf, m = p.clone(), torch.zeros_like(lam)
+    top = float(lam.max()) if lam.numel() else 0.0
+    for i in range(1, math.ceil(top + 12.0 * math.sqrt(top) + 12.0) + 1):
+        m += u > cdf
+        p = p * lam / i
+        cdf += p
+    return m.to(torch.int32)
 
 
 def draw_reset(

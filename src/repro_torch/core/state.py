@@ -12,7 +12,9 @@ all envs and has no batch axis, unless it is a scenario stack expanded to the
 batch (:func:`repro_torch.scenarios.expand_params`): then ``env_scenario``
 maps each env to its scenario, the tables read by the clock keep one copy
 per scenario on a leading axis S, and the other scenario fields hold one row
-per env.  Dtypes follow the JAX package: ``t_remain``, ``t`` and ``day`` are
+per env.  A fleet's params (:func:`repro_torch.core.fleet.stack_params`)
+also hold the station fields as rows per env, and the fused step's packs
+once per distinct station.  Dtypes follow the JAX package: ``t_remain``, ``t`` and ``day`` are
 int32, every other field float32.
 """
 from __future__ import annotations
@@ -48,6 +50,14 @@ class EnvParams:
     Station arrays come from :class:`repro_torch.core.station.StationLayout`;
     data tables from :mod:`repro_torch.core.datasets`.  Scalars are 0-d
     float32 tensors on the env's device.
+
+    A fleet's params (:func:`repro_torch.core.fleet.stack_params`) hold the
+    station fields as rows per env (``member`` ``(B, Nn, P)``, per-port
+    fields ``(B, N)``, battery scalars ``(B,)``), the clock-read tables once
+    per distinct scenario read at ``[env_scenario, ...]`` (``car_probs``
+    ``(S, 365, M)``, a view where no scenario drifts), every other field a
+    row per env, and
+    ``pole`` a ``PolePacks``.
 
     Expanded from a scenario stack of S scenarios to B envs, the station
     fields and ``pole`` are shared as they are; the clock-read tables
@@ -105,9 +115,10 @@ class EnvParams:
     # --- reward ---
     weights: RewardWeights
     # --- fused-step kernel pack (None unless EnvConfig.fused_step) ---
-    # A kernels.chargax_step PoleParams with the unpadded per-pole rows, the
-    # (node, pole) membership and its per-node bitmask, built once at
-    # make_params time so the per-step path never rebuilds it.
+    # A kernels.chargax_step PoleParams with the unpadded per-pole rows and
+    # the (node, pole) membership, built once at make_params time so the
+    # per-step path never rebuilds it; a fleet's PolePacks (K packs, each
+    # env's index).
     pole: Any = None
     # --- scenario stack expanded to the batch (None: one world for all envs) ---
     # (B,) int64: env b belongs to scenario b // (B // S)

@@ -16,9 +16,12 @@ Shapes: per-port tensors are ``(B, N)``, per-station tensors ``(B,)``; the
 shared :class:`EnvParams` rows broadcast against them.  Params expanded from
 a scenario stack carry a row per env of their scenario fields (scalars
 ``(B,)``, read here as ``(B, 1)`` against per-port tensors) and read their
-clock tables at each env's scenario (:func:`scenario_rows`).  Random draws enter
-through :mod:`repro_torch.core.sampling`: ``arrive_cars`` applies an
-:class:`ArrivalDraws` and draws nothing itself.
+clock tables at each env's scenario (:func:`scenario_rows`).  A fleet's
+params (:func:`repro_torch.core.fleet.stack_params`) also carry its station
+fields as rows per env: ``(B, N)`` per port, ``(B,)`` battery scalars and a
+``(B, Nn, P)`` membership, which :func:`node_load` multiplies per env.
+Random draws enter through :mod:`repro_torch.core.sampling`: ``arrive_cars``
+applies an :class:`ArrivalDraws` and draws nothing itself.
 """
 from __future__ import annotations
 
@@ -229,10 +232,19 @@ class AppliedActions(NamedTuple):
     constraint_excess: Tensor  # (B,) max pre-rescale node violation [A]
 
 
+def node_load(amps: Tensor, member: Tensor) -> Tensor:
+    """Eq. 5's node loads (B, Nn) from leaf current magnitudes (B, P): one
+    station's ``(Nn, P)`` membership for all envs, or a fleet's ``(B, Nn, P)``
+    row per env."""
+    if member.dim() == 2:
+        return amps @ member.T
+    return (member @ amps[:, :, None])[:, :, 0]
+
+
 def constraint_scale(
     currents: Tensor,  # (B, n_leaves) signed amps (EVSEs + battery column)
-    member: Tensor,  # (n_nodes, n_leaves)
-    node_budget: Tensor,  # (n_nodes,) eta_H * I_H
+    member: Tensor,  # (n_nodes, n_leaves), or (B, n_nodes, n_leaves) in a fleet
+    node_budget: Tensor,  # (n_nodes,) eta_H * I_H, or (B, n_nodes)
 ) -> tuple[Tensor, Tensor]:
     """Per-leaf multiplicative scale enforcing Eq. 5 on every subtree.
 
@@ -240,7 +252,7 @@ def constraint_scale(
     load ``(B, P) @ (P, Nn)``; ``scale_j = min_{H ∋ j} budget_H / load_H``.
     Returns (per-leaf scale in (0, 1], max pre-rescale node excess in amps).
     """
-    load = currents.abs() @ member.T  # (B, n_nodes)
+    load = node_load(currents.abs(), member)  # (B, n_nodes)
     s_node = torch.clamp(node_budget / load.clamp_min(1e-9), max=1.0)
     excess = (load - node_budget).clamp_min(0.0).amax(-1)
     # min over ancestors; a leaf with no constrained ancestor is unscaled

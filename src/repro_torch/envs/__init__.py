@@ -6,12 +6,20 @@
 """
 from repro_torch.envs import spaces
 from repro_torch.envs.base import Environment, TimeStep
-from repro_torch.envs.wrappers import AutoReset, AutoResetDraws, LogState, LogWrapper, Wrapper
+from repro_torch.envs.wrappers import (
+    AutoReset,
+    AutoResetDraws,
+    FleetAdapter,
+    LogState,
+    LogWrapper,
+    Wrapper,
+)
 
 __all__ = [
     "AutoReset",
     "AutoResetDraws",
     "Environment",
+    "FleetAdapter",
     "LogState",
     "LogWrapper",
     "TimeStep",

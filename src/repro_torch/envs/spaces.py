@@ -2,7 +2,8 @@
 
 A :class:`Space` describes the shape, dtype and bounds of one side of the env
 interface.  Spaces are plain Python objects; ``contains`` is a host-side
-check.  (Random actions come from ``rl.baselines.random_policy``.)
+check; :func:`batch` prepends a batch axis (a fleet's spaces).  (Random
+actions come from ``rl.baselines.random_policy``.)
 """
 from __future__ import annotations
 
@@ -89,3 +90,17 @@ class MultiDiscrete(Space):
             return f"MultiDiscrete({self.num_categories} x {self.shape})"
         except ValueError:
             return f"MultiDiscrete(nvec={self.nvec.tolist()})"
+
+
+def batch(space: Space, n: int) -> Space:
+    """Prepend a batch axis of size ``n`` to ``space``."""
+    if isinstance(space, Box):
+        return Box(
+            np.broadcast_to(space.low, (n,) + space.shape),
+            np.broadcast_to(space.high, (n,) + space.shape),
+            (n,) + space.shape,
+            space.dtype,
+        )
+    if isinstance(space, MultiDiscrete):
+        return MultiDiscrete(np.broadcast_to(space.nvec, (n,) + space.shape), space.dtype)
+    raise TypeError(f"cannot batch {type(space).__name__}")

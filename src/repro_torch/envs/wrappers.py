@@ -5,6 +5,8 @@ the torch counterpart of ``repro.envs.wrappers``.
 ``AutoReset``           restarts finished episodes inside ``step``
 ``LogWrapper``          episode return/length accounting in ``info``, and
                         KPIs accumulated on the device
+``FleetAdapter``        a :class:`~repro_torch.core.FleetEnv` through the
+                        protocol: :class:`TimeStep` returns, batched spaces
 ======================  =====================================================
 
 The port's env is batched natively (a leading env axis on every state
@@ -182,3 +184,40 @@ class LogWrapper(Wrapper):
         info["episode_length"] = new_state.returned_episode_length
         info["returned_episode"] = done
         return TimeStep(ts.obs, new_state, ts.reward, done, info)
+
+
+class FleetAdapter(Wrapper):
+    """Present a :class:`~repro_torch.core.fleet.FleetEnv` through the protocol.
+
+    ``FleetEnv.step`` returns a tuple; the adapter adds :class:`TimeStep`
+    returns and the ``(num_envs, ...)`` spaces of the template station, so a
+    fleet composes with the rest of the wrapper stack
+    (``AutoReset(FleetAdapter(fleet))`` resets each station at its horizon).
+    ``fused_step`` toggles the fleet's fused step first.
+    """
+
+    def __init__(self, env: Any, fused_step: bool | None = None):
+        if fused_step is not None:
+            env = env.with_fused_step(fused_step)
+        super().__init__(env)
+
+    def reset(self, rng: Any, params: Any | None = None, *, num_envs: int | None = None):
+        if num_envs is not None and num_envs != self._env.num_envs:
+            raise ValueError(f"the fleet has {self._env.num_envs} envs, not {num_envs}")
+        return self._env.reset(rng, params)
+
+    def step(self, rng: Any, state: Any, action: Any, params: Any | None = None) -> TimeStep:
+        obs, state, reward, done, info = self._env.step(rng, state, action, params)
+        return TimeStep(obs, state, reward, done, info)
+
+    @property
+    def observation_space(self) -> spaces.Space:
+        return spaces.batch(self._env.template.observation_space, self._env.num_envs)
+
+    @property
+    def action_space(self) -> spaces.Space:
+        return spaces.batch(self._env.template.action_space, self._env.num_envs)
+
+    @property
+    def unwrapped(self) -> Any:
+        return self._env

@@ -37,7 +37,14 @@
 // copies out in turn, and the arithmetic does not overlap the copies (the
 // copies alone take about 0.8 of the kernel's time, and inputs in L2 save
 // under a tenth).
-// P and Nn are bounded only by the shared memory a block may hold
+// A fleet's stations differ in their poles and nodes (padded to one P and
+// Nn), so a batch may carry K packs of the per-pole constants, membership
+// and budgets, and a (B,) int32 index of each env's pack: the packed
+// instance stages all K packs and its 32 envs' indices in shared memory and
+// reads each item's constants at its env's pack; the single-pack instance
+// is the same code with the pack fixed at 0.  One launch serves the batch
+// either way.
+// P, Nn and K are bounded only by the shared memory a block may hold
 // (smem_floats); the wrapper states the maxima it takes.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,9 +77,13 @@ __host__ __device__ constexpr int out_tile(int s) {
   return s == 0 ? kTarget : s == 1 ? kSoc : s == 2 ? kERemain : s == 3 ? kRbar : kOccupied;
 }
 
-__host__ __device__ constexpr int smem_floats(int n_poles, int n_nodes) {
-  return kTiles * kEnvsPerBlock * n_poles + kPoleConsts * n_poles + n_nodes * n_poles + n_nodes +
-         2 * kEnvsPerBlock * n_nodes + 2 * kEnvsPerBlock;
+// the floats of a block's shared memory: the tiles, K packs of per-pole
+// constants, membership and budgets, the per-(env, node) scales and excesses,
+// the per-env caps and feeder scales, and (packed) the per-env pack indices
+__host__ __device__ constexpr int smem_floats(int n_poles, int n_nodes, int n_packs, bool packs) {
+  return kTiles * kEnvsPerBlock * n_poles +
+         n_packs * (kPoleConsts * n_poles + n_nodes * n_poles + n_nodes) +
+         2 * kEnvsPerBlock * n_nodes + 2 * kEnvsPerBlock + (packs ? kEnvsPerBlock : 0);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -104,29 +115,33 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
       : "memory");
 }
 
+template <bool kPacks>
 __global__ void __launch_bounds__(kThreads)
 chargax_step_kernel(
     Slabs slabs,
     const float* __restrict__ grid_cap,  // (B,) feeder cap [kW]
-    // static pole and node parameters
+    // static pole and node parameters, one pack or K packs stacked
     const float* __restrict__ voltage, const float* __restrict__ imax,
-    const float* __restrict__ eff, const float* __restrict__ power_w,  // (P,)
-    const float* __restrict__ member,       // (Nn, P) 0/1
-    const float* __restrict__ node_budget,  // (Nn,)
+    const float* __restrict__ eff, const float* __restrict__ power_w,  // (K, P)
+    const float* __restrict__ member,       // (K, Nn, P) 0/1
+    const float* __restrict__ node_budget,  // (K, Nn)
+    const int* __restrict__ pack,           // (B,) each env's pack (kPacks)
     float* __restrict__ excess_out, float* __restrict__ p_req_out,  // (B,)
-    int n_envs, int n_poles, int n_nodes, float dt_hours, int aligned) {
+    int n_envs, int n_poles, int n_nodes, int n_packs, float dt_hours, int aligned) {
   extern __shared__ __align__(16) float smem[];
   __shared__ __align__(8) uint64_t bar_storage;
-  const int P = n_poles, Nn = n_nodes, tid = threadIdx.x;
+  const int P = n_poles, Nn = n_nodes, K = kPacks ? n_packs : 1, tid = threadIdx.x;
   const int tile = kEnvsPerBlock * P;
+  const int pack_floats = kPoleConsts * P;  // one pack's per-pole constants
   float* tiles = smem;  // kTiles tiles of `tile` floats
-  float* pole = tiles + kTiles * tile;  // kPoleConsts rows of P
-  float* mem = pole + kPoleConsts * P;  // (Nn, P)
-  float* budget = mem + Nn * P;         // (Nn,)
-  float* s_node = budget + Nn;          // (kEnvsPerBlock, Nn)
+  float* pole = tiles + kTiles * tile;  // K packs of kPoleConsts rows of P
+  float* mem = pole + K * pack_floats;  // (K, Nn, P)
+  float* budget = mem + K * Nn * P;     // (K, Nn)
+  float* s_node = budget + K * Nn;      // (kEnvsPerBlock, Nn)
   float* over = s_node + kEnvsPerBlock * Nn;
   float* cap_env = over + kEnvsPerBlock * Nn;  // (kEnvsPerBlock,)
   float* gscale = cap_env + kEnvsPerBlock;
+  int* pack_env = reinterpret_cast<int*>(gscale + kEnvsPerBlock);  // (kEnvsPerBlock,) if kPacks
 
   const int e0 = blockIdx.x * kEnvsPerBlock;
   const int n_env = min(kEnvsPerBlock, n_envs - e0);
@@ -155,19 +170,25 @@ chargax_step_kernel(
       for (int k = tid; k < items; k += kThreads) tiles[s * tile + k] = slabs.in[s][base + k];
     }
   }
-  // per-pole constants and membership, staged while the copies fly
-  for (int p = tid; p < P; p += kThreads) {
-    const float v = voltage[p], ef = eff[p];
-    pole[kImax * P + p] = imax[p];
-    pole[kEff * P + p] = ef;
-    pole[kPowerW * P + p] = power_w[p];
-    pole[kAmpPerKwh * P + p] = 1000.0f / fmaxf(v * dt_hours, 1e-9f);
-    pole[kInvEff * P + p] = 1.0f / fmaxf(ef, 1e-9f);
-    pole[kKwhPerAmp * P + p] = v * dt_hours / 1000.0f;
+  // per-pole constants and membership of every pack, staged while the
+  // copies fly
+  for (int q = tid; q < K * P; q += kThreads) {
+    const int k = q / P, p = q - k * P;
+    float* row = pole + k * pack_floats;
+    const float v = voltage[q], ef = eff[q];
+    row[kImax * P + p] = imax[q];
+    row[kEff * P + p] = ef;
+    row[kPowerW * P + p] = power_w[q];
+    row[kAmpPerKwh * P + p] = 1000.0f / fmaxf(v * dt_hours, 1e-9f);
+    row[kInvEff * P + p] = 1.0f / fmaxf(ef, 1e-9f);
+    row[kKwhPerAmp * P + p] = v * dt_hours / 1000.0f;
   }
-  for (int k = tid; k < Nn * P; k += kThreads) mem[k] = member[k];
-  for (int n = tid; n < Nn; n += kThreads) budget[n] = node_budget[n];
-  for (int e = tid; e < n_env; e += kThreads) cap_env[e] = grid_cap[e0 + e];
+  for (int k = tid; k < K * Nn * P; k += kThreads) mem[k] = member[k];
+  for (int n = tid; n < K * Nn; n += kThreads) budget[n] = node_budget[n];
+  for (int e = tid; e < n_env; e += kThreads) {
+    cap_env[e] = grid_cap[e0 + e];
+    if (kPacks) pack_env[e] = pack[e0 + e];
+  }
   __syncthreads();
   if (bulk) mbar_wait(bar, 0);
 
@@ -184,11 +205,12 @@ chargax_step_kernel(
 
   // --- per-pole bounds and clip (transition.pole_bounds / pole_clip) -------
   FOR_ITEMS(k, e, p) {
+    const float* pc = pole + (kPacks ? pack_env[e] : 0) * pack_floats;
     const float s = tiles[kSoc * tile + k], er = tiles[kERemain * tile + k];
     const float cp = tiles[kCap * tile + k], rb = tiles[kRbar * tile + k];
     const float ta = tiles[kTau * tile + k];
-    const float im = pole[kImax * P + p], ef = pole[kEff * P + p];
-    const float apk = pole[kAmpPerKwh * P + p], inv_eff = pole[kInvEff * P + p];
+    const float im = pc[kImax * P + p], ef = pc[kEff * P + p];
+    const float apk = pc[kAmpPerKwh * P + p], inv_eff = pc[kInvEff * P + p];
     const float inv_tau = __fdividef(1.0f, fmaxf(1.0f - ta, 1e-6f));
     const float sd = 1.0f - s;
     const float rhat_chg = s <= ta ? rb : rb * (1.0f - s) * inv_tau;
@@ -209,26 +231,29 @@ chargax_step_kernel(
   // --- Eq. 5: one thread per (env, node) sums its member poles -------------
   for (int j = tid; j < n_env * Nn; j += kThreads) {
     const int e = j / Nn, n = j - e * Nn;
+    const int kn = (kPacks ? pack_env[e] * Nn : 0) + n;  // the node in its env's pack
     const float* a = scratch + e * P;
-    const float* m = mem + n * P;
+    const float* m = mem + kn * P;
     float load = 0.0f;
 #pragma unroll 4
     for (int p = 0; p < P; ++p) load = fmaf(m[p], a[p], load);
-    s_node[j] = fminf(1.0f, budget[n] / fmaxf(load, 1e-9f));
-    over[j] = fmaxf(load - budget[n], 0.0f);
+    s_node[j] = fminf(1.0f, budget[kn] / fmaxf(load, 1e-9f));
+    over[j] = fmaxf(load - budget[kn], 0.0f);
   }
   __syncthreads();
 
   // --- each pole takes the smallest scale of its member nodes --------------
   FOR_ITEMS(k, e, p) {
+    const int pk = kPacks ? pack_env[e] : 0;
+    const float* m = mem + pk * Nn * P;
     float scale = 1.0f;
 #pragma unroll 4
     for (int n = 0; n < Nn; ++n) {
-      if (mem[n * P + p] > 0.0f) scale = fminf(scale, s_node[e * Nn + n]);
+      if (m[n * P + p] > 0.0f) scale = fminf(scale, s_node[e * Nn + n]);
     }
     const float i = i_tile[k] * scale;
     i_tile[k] = i;
-    scratch[k] = fmaxf(i, 0.0f) * pole[kPowerW * P + p];
+    scratch[k] = fmaxf(i, 0.0f) * pole[pk * pack_floats + kPowerW * P + p];
   }
   __syncthreads();
 
@@ -249,14 +274,15 @@ chargax_step_kernel(
 
   // --- curtail charging amps and integrate over dt (pole_integrate) --------
   FOR_ITEMS(k, e, p) {
+    const float* pc = pole + (kPacks ? pack_env[e] : 0) * pack_floats;
     float i = i_tile[k];
     if (i > 0.0f) i *= gscale[e];
     const float s = tiles[kSoc * tile + k], er = tiles[kERemain * tile + k];
     const float cp = tiles[kCap * tile + k], rb = tiles[kRbar * tile + k];
     const float ta = tiles[kTau * tile + k], occ = tiles[kOccupied * tile + k];
-    const float e_kwh = i * pole[kKwhPerAmp * P + p];
+    const float e_kwh = i * pc[kKwhPerAmp * P + p];
     const float soc_delta =
-        e_kwh >= 0.0f ? e_kwh * pole[kEff * P + p] : e_kwh * pole[kInvEff * P + p];
+        e_kwh >= 0.0f ? e_kwh * pc[kEff * P + p] : e_kwh * pc[kInvEff * P + p];
     const float soc_step = __fdividef(soc_delta, fmaxf(cp, 1e-6f));
     const float soc_new = fminf(fmaxf(s + soc_step, 0.0f), 1.0f);
     const float headroom = er >= 0.5f * kBig ? kBig : (1.0f - soc_new) * cp;
@@ -296,8 +322,10 @@ chargax_step_kernel(
 
 // dynamic shared memory of one block, after raising the kernel's limit
 // above the default 48 KB where it needs more; 0 if a block cannot hold it
-size_t prepare(int n_poles, int n_nodes) {
-  const size_t bytes = sizeof(float) * static_cast<size_t>(smem_floats(n_poles, n_nodes));
+template <bool kPacks>
+size_t prepare(int n_poles, int n_nodes, int n_packs) {
+  const size_t bytes =
+      sizeof(float) * static_cast<size_t>(smem_floats(n_poles, n_nodes, n_packs, kPacks));
   int device = 0, limit = 0;
   if (cudaGetDevice(&device) != cudaSuccess ||
       cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
@@ -307,7 +335,8 @@ size_t prepare(int n_poles, int n_nodes) {
   // the static mbarrier takes 8 bytes of the same budget
   if (bytes + 8 > static_cast<size_t>(limit)) return 0;
   if (bytes > 48 * 1024 &&
-      cudaFuncSetAttribute(chargax_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cudaFuncSetAttribute(chargax_step_kernel<kPacks>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(bytes)) != cudaSuccess) {
     return 0;
   }
@@ -316,22 +345,69 @@ size_t prepare(int n_poles, int n_nodes) {
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+template <bool kPacks>
+int occupancy(int n_envs, int n_poles, int n_nodes, int n_packs, int* per_sm, int* blocks) {
+  const size_t smem = prepare<kPacks>(n_poles, n_nodes, n_packs);
+  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
+  *blocks = (n_envs + kEnvsPerBlock - 1) / kEnvsPerBlock;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, chargax_step_kernel<kPacks>, kThreads, smem));
+}
+
+template <bool kPacks>
+int launch(const float* const in[kInputs], const float* grid_cap, const float* voltage,
+           const float* imax, const float* eff, const float* power_w, const float* member,
+           const float* node_budget, const int* pack, float* const out[kOutputs],
+           float* excess_out, float* p_req_out, int n_envs, int n_poles, int n_nodes,
+           int n_packs, float dt_hours, void* stream) {
+  if (n_envs <= 0) return static_cast<int>(cudaGetLastError());
+  const size_t smem = prepare<kPacks>(n_poles, n_nodes, n_packs);
+  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
+  Slabs slabs;
+  bool aligned = true;
+  for (int s = 0; s < kInputs; ++s) {
+    slabs.in[s] = in[s];
+    aligned = aligned && aligned16(in[s]);
+  }
+  for (int s = 0; s < kOutputs; ++s) {
+    slabs.out[s] = out[s];
+    aligned = aligned && aligned16(out[s]);
+  }
+  const unsigned blocks = (n_envs + kEnvsPerBlock - 1) / kEnvsPerBlock;
+  chargax_step_kernel<kPacks><<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      slabs, grid_cap, voltage, imax, eff, power_w, member, node_budget, pack, excess_out,
+      p_req_out, n_envs, n_poles, n_nodes, n_packs, dt_hours, static_cast<int>(aligned));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The blocks of the kernel one SM holds at once at P poles and Nn nodes, and
 // the blocks its grid has for n_envs envs.  Returns a CUDA error as an int.
 extern "C" int chargax_step_occupancy(int n_envs, int n_poles, int n_nodes, int* per_sm,
                                       int* blocks) {
-  const size_t smem = prepare(n_poles, n_nodes);
-  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
-  *blocks = (n_envs + kEnvsPerBlock - 1) / kEnvsPerBlock;
-  return static_cast<int>(
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, chargax_step_kernel, kThreads, smem));
+  return occupancy<false>(n_envs, n_poles, n_nodes, 1, per_sm, blocks);
 }
 
-// Launches the kernel on `stream` and returns cudaGetLastError() as an int,
-// which the Python wrapper raises on; cudaErrorInvalidValue if a block's
-// shared memory cannot hold P poles and Nn nodes.
+// The same for the packed instance with n_packs packs in shared memory.
+extern "C" int chargax_step_occupancy_packs(int n_envs, int n_poles, int n_nodes, int n_packs,
+                                            int* per_sm, int* blocks) {
+  return occupancy<true>(n_envs, n_poles, n_nodes, n_packs, per_sm, blocks);
+}
+
+// The dynamic shared memory of one block at P poles and Nn nodes, in bytes:
+// the single-pack instance for n_packs <= 0, else the packed one with
+// n_packs packs.  The wrapper's refusals are held against it.
+extern "C" int chargax_step_smem_bytes(int n_poles, int n_nodes, int n_packs) {
+  const bool packs = n_packs > 0;
+  return static_cast<int>(sizeof(float)) *
+         smem_floats(n_poles, n_nodes, packs ? n_packs : 1, packs);
+}
+
+// Launches the kernel with one pack for every env on `stream` and returns
+// cudaGetLastError() as an int, which the Python wrapper raises on;
+// cudaErrorInvalidValue if a block's shared memory cannot hold P poles and
+// Nn nodes.
 extern "C" int chargax_step_launch(
     const float* target, const float* occupied, const float* soc,
     const float* e_remain, const float* cap, const float* rbar, const float* tau,
@@ -341,17 +417,27 @@ extern "C" int chargax_step_launch(
     float* e_remain_out, float* rhat_out, float* e_pole_out, float* excess_out,
     float* p_req_out, int n_envs, int n_poles, int n_nodes, float dt_hours,
     void* stream) {
-  if (n_envs <= 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = prepare(n_poles, n_nodes);
-  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Slabs slabs = {{target, occupied, soc, e_remain, cap, rbar, tau},
-                       {current_out, soc_out, e_remain_out, rhat_out, e_pole_out}};
-  bool aligned = true;
-  for (const float* p : slabs.in) aligned = aligned && aligned16(p);
-  for (const float* p : slabs.out) aligned = aligned && aligned16(p);
-  const unsigned blocks = (n_envs + kEnvsPerBlock - 1) / kEnvsPerBlock;
-  chargax_step_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      slabs, grid_cap, voltage, imax, eff, power_w, member, node_budget, excess_out, p_req_out,
-      n_envs, n_poles, n_nodes, dt_hours, static_cast<int>(aligned));
-  return static_cast<int>(cudaGetLastError());
+  const float* in[kInputs] = {target, occupied, soc, e_remain, cap, rbar, tau};
+  float* out[kOutputs] = {current_out, soc_out, e_remain_out, rhat_out, e_pole_out};
+  return launch<false>(in, grid_cap, voltage, imax, eff, power_w, member, node_budget, nullptr,
+                       out, excess_out, p_req_out, n_envs, n_poles, n_nodes, 1, dt_hours, stream);
+}
+
+// The same with n_packs packs stacked ((K, P) constants, (K, Nn, P)
+// membership, (K, Nn) budgets) and `pack`, each env's pack in [0, n_packs);
+// cudaErrorInvalidValue also if a block's shared memory cannot hold the
+// packs.
+extern "C" int chargax_step_launch_packs(
+    const float* target, const float* occupied, const float* soc,
+    const float* e_remain, const float* cap, const float* rbar, const float* tau,
+    const float* grid_cap, const float* voltage, const float* imax,
+    const float* eff, const float* power_w, const float* member,
+    const float* node_budget, float* current_out, float* soc_out,
+    float* e_remain_out, float* rhat_out, float* e_pole_out, float* excess_out,
+    float* p_req_out, const int* pack, int n_packs, int n_envs, int n_poles, int n_nodes,
+    float dt_hours, void* stream) {
+  const float* in[kInputs] = {target, occupied, soc, e_remain, cap, rbar, tau};
+  float* out[kOutputs] = {current_out, soc_out, e_remain_out, rhat_out, e_pole_out};
+  return launch<true>(in, grid_cap, voltage, imax, eff, power_w, member, node_budget, pack, out,
+                      excess_out, p_req_out, n_envs, n_poles, n_nodes, n_packs, dt_hours, stream);
 }

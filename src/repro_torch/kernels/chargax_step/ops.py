@@ -24,6 +24,13 @@ not padded: P = n_evse + 1 and Nn are the station's own.  The kernel keeps a
 block's tiles in shared memory, which bounds them: P <= ``MAX_POLES`` and
 Nn <= ``MAX_NODES`` (a padded fleet station of 40 EVSEs and 36 nodes is
 P = 41, Nn = 36).
+
+One :class:`PoleParams` pack serves a batch of envs of one station.  A
+fleet's stations share P and Nn (padded to the largest) but not their
+packs: :class:`PolePacks` stacks K distinct packs with each env's pack
+index, and the kernel's packed instance stages all K in every block's shared
+memory, so a heterogeneous batch is still one launch.  The K packs must fit
+beside the tiles (:func:`smem_bytes` within ``SMEM_BYTES``).
 """
 from __future__ import annotations
 
@@ -46,6 +53,7 @@ from repro_torch.kernels.chargax_step.ref import (
     BIG,
     FusedOut,
     PoleParams,
+    PolePacks,
     PoleSlabs,
     fused_step_ref,
 )
@@ -57,6 +65,30 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "chargax_step.cu"
 # these maxima, of the 227 KB an H100 block may take)
 MAX_POLES = 128
 MAX_NODES = 64
+# shared memory one block may take on an H100 (sm_90,
+# cudaDevAttrMaxSharedMemoryPerBlockOptin), the static mbarrier's 8 bytes
+# included
+SMEM_BYTES = 227 * 1024
+# the kernel's block: csrc/chargax_step.cu kEnvsPerBlock and the floats it
+# stages per env, per pack and per (env, node) (smem_floats there)
+ENVS_PER_BLOCK = 32
+_TILES, _POLE_CONSTS = 9, 6
+
+
+def smem_bytes(p: int, nn: int, n_packs: int | None = None) -> int:
+    """Shared memory of one block at P poles and Nn nodes, with one pack
+    (``n_packs=None``, the single-pack instance) or K packs: the kernel's
+    own count (:func:`kernel_smem_bytes`), kept here so that a CPU caller
+    is refused before a launch."""
+    k = 1 if n_packs is None else n_packs
+    floats = (
+        _TILES * ENVS_PER_BLOCK * p
+        + k * (_POLE_CONSTS * p + nn * p + nn)
+        + 2 * ENVS_PER_BLOCK * nn
+        + 2 * ENVS_PER_BLOCK
+        + (0 if n_packs is None else ENVS_PER_BLOCK)
+    )
+    return 4 * floats
 
 
 def build_kernel() -> tuple[Path, str]:
@@ -65,12 +97,21 @@ def build_kernel() -> tuple[Path, str]:
     return build(SOURCE, "chargax_step")
 
 
+# chargax_step_launch's C types: 21 pointers, B, P, Nn, dt and the stream
+LAUNCH_ARGTYPES = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+
+
 def bind(path: Path) -> ctypes.CDLL:
-    """Load a built library and declare ``chargax_step_launch``'s C types."""
+    """Load a built library and declare the C types of its two launches
+    and of ``chargax_step_smem_bytes``."""
     lib = ctypes.CDLL(str(path))
-    fn = lib.chargax_step_launch
-    fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib.chargax_step_launch.argtypes = LAUNCH_ARGTYPES
+    lib.chargax_step_launch_packs.argtypes = (
+        [ctypes.c_void_p] * 22 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    )
+    lib.chargax_step_smem_bytes.argtypes = [ctypes.c_int] * 3
+    for fn in (lib.chargax_step_launch, lib.chargax_step_launch_packs, lib.chargax_step_smem_bytes):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -80,25 +121,38 @@ def _library() -> ctypes.CDLL:
     return bind(path)
 
 
-def blocks_per_sm(b: int, p: int, nn: int) -> tuple[int, int]:
-    """For B envs of P poles and Nn nodes: the blocks of the kernel one SM
-    holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the
-    blocks its grid has.  Needs a card."""
-    fn = _library().chargax_step_occupancy
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+def kernel_smem_bytes(p: int, nn: int, n_packs: int | None = None) -> int:
+    """The kernel's own count of a block's shared memory, which
+    :func:`smem_bytes` must equal.  Needs ``nvcc``."""
+    return _library().chargax_step_smem_bytes(p, nn, 0 if n_packs is None else n_packs)
+
+
+def blocks_per_sm(b: int, p: int, nn: int, n_packs: int | None = None) -> tuple[int, int]:
+    """For B envs of P poles and Nn nodes, with one pack or ``n_packs``
+    packs: the blocks of the kernel one SM holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the blocks its
+    grid has.  Needs a card."""
+    lib = _library()
+    if n_packs is None:
+        fn, args = lib.chargax_step_occupancy, (b, p, nn)
+    else:
+        fn, args = lib.chargax_step_occupancy_packs, (b, p, nn, n_packs)
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)] * 2
     fn.restype = ctypes.c_int
     per_sm, blocks = ctypes.c_int(0), ctypes.c_int(0)
-    err = fn(b, p, nn, ctypes.byref(per_sm), ctypes.byref(blocks))
+    err = fn(*args, ctypes.byref(per_sm), ctypes.byref(blocks))
     if err != 0:
         raise RuntimeError(f"chargax_step occupancy query failed with CUDA error {err}")
     return per_sm.value, blocks.value
 
 
-def _check(slabs: PoleSlabs, pp: PoleParams, cap: Tensor) -> None:
+def _check(slabs: PoleSlabs, pp: PoleParams | PolePacks, cap: Tensor) -> None:
     """Raise ``ValueError`` on inputs the kernel does not take."""
     dev = slabs.target.device
     b, p = slabs.target.shape
-    nn = pp.member.shape[0]
+    packs = pp.packs if isinstance(pp, PolePacks) else pp
+    lead = packs.member.shape[:1] if isinstance(pp, PolePacks) else ()
+    nn = packs.member.shape[-2]
     if p > MAX_POLES or nn > MAX_NODES:
         raise ValueError(
             f"chargax_step kernel takes at most {MAX_POLES} poles and {MAX_NODES} "
@@ -109,9 +163,18 @@ def _check(slabs: PoleSlabs, pp: PoleParams, cap: Tensor) -> None:
         check_tensor(name, x, dev, f32, (b, p))
     check_tensor("cap_kw", cap, dev, f32, (b,))
     for name in ("voltage", "imax", "eff", "power_w"):
-        check_tensor(name, getattr(pp, name), dev, f32, (p,))
-    check_tensor("member", pp.member, dev, f32, (nn, p))
-    check_tensor("node_budget", pp.node_budget, dev, f32, (nn,))
+        check_tensor(name, getattr(packs, name), dev, f32, lead + (p,))
+    check_tensor("member", packs.member, dev, f32, lead + (nn, p))
+    check_tensor("node_budget", packs.node_budget, dev, f32, lead + (nn,))
+    if isinstance(pp, PolePacks):
+        k = lead[0]
+        need = smem_bytes(p, nn, k) + 8
+        if need > SMEM_BYTES:
+            raise ValueError(
+                f"{k} packs of P={p}, Nn={nn} need {need} bytes of a block's shared "
+                f"memory, over the {SMEM_BYTES} a block may take"
+            )
+        check_tensor("pack index", pp.index, dev, torch.int32, (b,))  # in range: PolePacks
 
 
 def _aligned(x: Tensor) -> Tensor:
@@ -120,24 +183,33 @@ def _aligned(x: Tensor) -> Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def _launch(slabs: PoleSlabs, pp: PoleParams, dt_hours: float, cap: Tensor) -> FusedOut:
+def _launch(
+    slabs: PoleSlabs, pp: PoleParams | PolePacks, dt_hours: float, cap: Tensor
+) -> FusedOut:
     _check(slabs, pp, cap)
     dev = slabs.target.device
     b, p = slabs.target.shape
-    nn = pp.member.shape[0]
+    packs = pp.packs if isinstance(pp, PolePacks) else pp
+    nn = packs.member.shape[-2]
     outs = [torch.empty((b, p), device=dev, dtype=torch.float32) for _ in range(5)]
     outs += [torch.empty((b,), device=dev, dtype=torch.float32) for _ in range(2)]
     if b == 0:
         return FusedOut(*outs)
-    ins = [*map(_aligned, slabs), cap, pp.voltage, pp.imax, pp.eff, pp.power_w, pp.member, pp.node_budget]
+    ins = [
+        *map(_aligned, slabs), cap, packs.voltage, packs.imax, packs.eff, packs.power_w,
+        packs.member, packs.node_budget,
+    ]
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.chargax_step_launch(
-            *[x.data_ptr() for x in ins],
-            *[x.data_ptr() for x in outs],
-            b, p, nn, dt_hours, stream,
-        )
+        ptrs = [x.data_ptr() for x in ins] + [x.data_ptr() for x in outs]
+        if isinstance(pp, PolePacks):
+            k = packs.member.shape[0]
+            err = lib.chargax_step_launch_packs(
+                *ptrs, pp.index.data_ptr(), k, b, p, nn, dt_hours, stream
+            )
+        else:
+            err = lib.chargax_step_launch(*ptrs, b, p, nn, dt_hours, stream)
     if err != 0:
         raise RuntimeError(f"chargax_step kernel launch failed with CUDA error {err}")
     chargax_step.launches += 1
@@ -146,11 +218,12 @@ def _launch(slabs: PoleSlabs, pp: PoleParams, dt_hours: float, cap: Tensor) -> F
 
 def chargax_step(
     slabs: PoleSlabs,
-    pp: PoleParams,
+    pp: PoleParams | PolePacks,
     dt_hours: float,
     cap_kw: Tensor | None = None,  # (B,) feeder cap [kW]; None = unlimited
 ) -> FusedOut:
-    """Fused request -> allocate -> deliver on (B, P) pole slabs.
+    """Fused request -> allocate -> deliver on (B, P) pole slabs, with one
+    pack for every env or a :class:`PolePacks` of K packs and each env's.
 
     On CUDA tensors this launches the kernel (``chargax_step.launches`` rises
     by one); on CPU tensors it runs :func:`fused_step_ref`.
@@ -172,11 +245,12 @@ def build_pole_params(params: EnvParams) -> PoleParams:
     """Lift EnvParams into PoleParams (poles = EVSEs + battery, unpadded).
 
     When ``EnvConfig.fused_step`` built the pack at ``make_params`` time it
-    lives on ``params.pole`` and is returned as it is.
+    lives on ``params.pole`` and is returned as it is; a fleet's params
+    carry their :class:`PolePacks` there.
     """
     if params.pole is not None:
         return params.pole
-    n = params.evse_voltage.shape[0]
+    n = params.evse_voltage.shape[-1]
     dev = params.evse_voltage.device
 
     def one(x: Tensor) -> Tensor:
@@ -253,7 +327,7 @@ def fused_transition(
     """
     cap = grid_cap_kw(params, state) if cap_kw is None else cap_kw
     out = fused_step(params, state, target_evse, target_batt, dt_hours, cap_kw=cap)
-    n = params.evse_voltage.shape[0]
+    n = params.evse_voltage.shape[-1]
     applied = AppliedActions(out.current[:, :n], out.current[:, n], out.excess)
     alloc = AllocationResult(
         applied=applied,

@@ -10,14 +10,18 @@ serves every pole.  The per-pole physics is the staged pipeline's own
 Eq. 5 tree constraint is written here in its batched matmul form.
 
 Poles are not padded: P = n_evse + 1 and Nn is the station's real node count.
+A batch of stations that differ (a fleet, padded to one P and Nn) carries
+K packs and each env's pack (:class:`PolePacks`); one pack serves every env
+otherwise.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.transition import BIG, pole_bounds, pole_clip, pole_integrate
+from repro_torch.core.transition import BIG, node_load, pole_bounds, pole_clip, pole_integrate
 
 Tensor = torch.Tensor
 
@@ -47,6 +51,34 @@ class PoleParams(NamedTuple):
     #     so p_req = sum(max(i,0) * power_w) / 1000 [kW]
 
 
+@dataclasses.dataclass(frozen=True)
+class PolePacks:
+    """K stations' packs stacked, and the pack of each of B envs.
+
+    Made once per batch of stations (a fleet's params), so the index is held
+    in range here, where reading it waits for the device once, and not at
+    every launch."""
+
+    packs: PoleParams  # every field with a leading K axis: (K, P), (K, Nn, P), (K, Nn)
+    index: Tensor  # (B,) int32 in [0, K)
+
+    def __post_init__(self):
+        k = self.packs.member.shape[0]
+        if self.index.dtype != torch.int32 or self.index.dim() != 1:
+            raise ValueError(
+                f"pack index must be (B,) int32, got {tuple(self.index.shape)} {self.index.dtype}"
+            )
+        if self.index.numel():
+            lo, hi = int(self.index.min()), int(self.index.max())
+            if lo < 0 or hi >= k:
+                raise ValueError(f"pack index out of range: [{lo}, {hi}] for {k} packs")
+
+    def per_env(self) -> PoleParams:
+        """Each env's pack as (B, ...) rows."""
+        idx = self.index.long()
+        return PoleParams(*(x[idx] for x in self.packs))
+
+
 class FusedOut(NamedTuple):
     current: Tensor  # (B, P) post-constraint amps
     soc: Tensor
@@ -59,10 +91,12 @@ class FusedOut(NamedTuple):
 
 def fused_step_ref(
     slabs: PoleSlabs,
-    pp: PoleParams,
+    pp: PoleParams | PolePacks,
     dt_hours: float,
     cap_kw: Tensor | None = None,
 ) -> FusedOut:
+    if isinstance(pp, PolePacks):  # a pack per env: (B, ...) rows
+        pp = pp.per_env()
     # --- per-pole clips: the staged pipeline's shared physics --------------
     up, down = pole_bounds(
         slabs.soc,
@@ -78,13 +112,13 @@ def fused_step_ref(
     i = pole_clip(slabs.target, up, down, slabs.occupied)
 
     # --- Eq. 5 tree constraints: load (B, P) @ (P, Nn), min over ancestors ---
-    load = i.abs() @ pp.member.T
+    load = node_load(i.abs(), pp.member)
     s_node = torch.clamp(pp.node_budget / load.clamp_min(1e-9), max=1.0)
     excess = (load - pp.node_budget).clamp_min(0.0).amax(-1)
     scale = torch.ones_like(i)
-    for n in range(pp.member.shape[0]):  # tiny node count
+    for n in range(pp.member.shape[-2]):  # tiny node count
         scale = torch.minimum(
-            scale, torch.where(pp.member[n] > 0, s_node[:, n : n + 1], BIG)
+            scale, torch.where(pp.member[..., n, :] > 0, s_node[:, n : n + 1], BIG)
         )
     i = i * scale
 

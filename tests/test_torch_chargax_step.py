@@ -14,6 +14,12 @@ fast divisions (``__fdividef``, within 2 ulp of IEEE) taken 2 ulp off.  That
 emulation is held to ``fused_step_ref`` at the same tolerance, over the
 bundled layouts and a padded fleet station of 41 poles and 36 nodes.
 
+A fleet's stations differ in their packs (``PolePacks``: K packs and each
+env's index, one launch): the plain version gathers each env's pack, held
+here against each station's slice run alone with its own pack, and the
+wrapper refuses an index out of range and K packs over a block's shared
+memory before any launch.
+
 The CUDA kernel cannot run here: its cases are marked ``cuda`` and skip
 without a card.  They build their inputs from the port alone (numpy and a
 seed), and JAX is imported only by the tests that compare with it, so the
@@ -30,7 +36,7 @@ import torch
 
 from repro_torch.core import ChargaxEnv, EnvConfig
 from repro_torch.kernels.chargax_step import ops
-from repro_torch.kernels.chargax_step.ref import BIG, FusedOut, PoleSlabs, fused_step_ref
+from repro_torch.kernels.chargax_step.ref import BIG, FusedOut, PolePacks, PoleSlabs, fused_step_ref
 
 TOL = dict(rtol=1e-4, atol=2e-4)
 LAYOUTS = ("paper_16", "deep_4x4", "kiosk_ac_4")
@@ -265,6 +271,113 @@ def test_wrapper_refuses_other_devices():
         ops.chargax_step(meta, env.default_params.pole, DT)
 
 
+# the fleet of benchmarks/fleet_throughput.py: 16/16/8 EVSEs and 3/5/1 nodes,
+# padded to P = 17, Nn = 5
+FLEET_ARCHS = ("paper_16", "deep_4x4", "single_dc_8")
+
+
+@functools.cache
+def _fleet_params(replicas: int):
+    from repro_torch.core import FleetEnv
+
+    fleet = FleetEnv(FLEET_ARCHS, EnvConfig(fused_step=True), replicas=replicas, device="cpu")
+    return fleet.default_params
+
+
+def _fleet_slabs(params, seed: int) -> PoleSlabs:
+    """Random slabs for a fleet's envs: padded ports empty, the battery pole
+    each station's own."""
+    b, n = params.evse_mask.shape
+    env = _env("paper_16")
+    rows = _random_slabs(env, b, seed)  # (B, 17): paper_16 and the fleet share P
+    batt = dict(cap=params.batt_capacity, rbar=params.batt_max_current, tau=params.batt_tau)
+    mask = torch.cat([params.evse_mask, torch.ones(b, 1)], dim=1)
+    out = {}
+    for name, x in zip(PoleSlabs._fields, rows):
+        x = x.clone()
+        if name in batt:
+            x[:, n] = batt[name]
+        if name == "occupied":
+            x = x * mask
+        out[name] = x
+    return PoleSlabs(**out)
+
+
+def _station_caps(slabs: PoleSlabs, pp: PolePacks) -> torch.Tensor:
+    """Per-station caps at 0.3, 0.5 and 0.7 of each env's requested power:
+    they bind wherever a station draws, each at its own fraction."""
+    frac = torch.tensor([0.3, 0.5, 0.7])[pp.index.long()]
+    return frac * fused_step_ref(slabs, pp, DT).p_req.clamp_min(1.0)
+
+
+@pytest.mark.parametrize("finite_cap", [True, False], ids=["cap", "unlimited"])
+def test_pole_packs_are_each_stations_own_pack(finite_cap):
+    """A 3-station fleet through one call of the plain version with a pack
+    per env equals each station's envs run alone with its own pack."""
+    from repro_torch.core import FleetEnv
+
+    params = _fleet_params(4)
+    pp = params.pole
+    assert isinstance(pp, PolePacks) and pp.packs.member.shape == (3, 5, 17)
+    assert pp.index.tolist() == [0, 1, 2] * 4 and pp.index.dtype == torch.int32
+    slabs = _fleet_slabs(params, seed=3)
+    cap = _station_caps(slabs, pp) if finite_cap else None
+    got = ops.chargax_step(slabs, pp, DT, cap)
+    fleet = FleetEnv(FLEET_ARCHS, EnvConfig(fused_step=True), device="cpu")
+    for s in range(3):
+        rows = torch.arange(s, 12, 3)
+        alone = fused_step_ref(
+            PoleSlabs(*(x[rows] for x in slabs)),
+            fleet.station_params(s).pole,
+            DT,
+            None if cap is None else cap[rows],
+        )
+        for name, g, w in zip(FusedOut._fields, got, alone):
+            torch.testing.assert_close(g[rows], w, rtol=0, atol=0, msg=name)
+    if finite_cap:
+        assert bool((got.p_req > cap).all())
+
+
+def test_kernel_wrapper_refuses_a_pack_index_out_of_range():
+    """A pack index out of [0, K) or not (B,) int32 is refused where the
+    packs are made, and one of another batch by the wrapper before a
+    launch."""
+    params = _fleet_params(2)
+    slabs = _fleet_slabs(params, seed=4)
+    packs = params.pole.packs
+    for bad in ([0, 1, 2, 0, 1, 3], [0, 1, 2, 0, -1, 2]):
+        with pytest.raises(ValueError, match="pack index out of range"):
+            PolePacks(packs, torch.tensor(bad, dtype=torch.int32))
+    with pytest.raises(ValueError, match="pack index must be"):
+        PolePacks(packs, params.pole.index.long())
+    other = PolePacks(packs, torch.zeros(5, dtype=torch.int32))
+    with pytest.raises(ValueError, match="pack index has shape"):
+        ops._launch(slabs, other, DT, torch.ones(6))
+
+
+def test_kernel_wrapper_refuses_packs_over_the_shared_memory_budget():
+    """K packs fit beside the tiles or the wrapper refuses before a launch:
+    at the largest P and Nn one pack fills the block, and 50 packs of the
+    fleet's shape (P = 17, Nn = 5) fit."""
+    assert ops.smem_bytes(ops.MAX_POLES, ops.MAX_NODES) == 200192
+    assert ops.smem_bytes(ops.MAX_POLES, ops.MAX_NODES, 1) + 8 <= ops.SMEM_BYTES
+    assert ops.smem_bytes(ops.MAX_POLES, ops.MAX_NODES, 2) + 8 > ops.SMEM_BYTES
+    for k, p, nn in ((2, ops.MAX_POLES, ops.MAX_NODES), (1000, 17, 5)):
+        slabs, one, cap = _slabs_and_pole(4, p, nn)
+        pp = PolePacks(
+            ops.PoleParams(*(x.expand(k, *x.shape).contiguous() for x in one)),
+            torch.zeros(4, dtype=torch.int32),
+        )
+        with pytest.raises(ValueError, match="shared"):
+            ops._launch(slabs, pp, DT, cap)
+    slabs, one, cap = _slabs_and_pole(4, 17, 5)
+    pp = PolePacks(
+        ops.PoleParams(*(x.expand(50, *x.shape).contiguous() for x in one)),
+        torch.zeros(4, dtype=torch.int32),
+    )
+    ops._check(slabs, pp, cap)
+
+
 def _slabs_and_pole(b: int, p: int, nn: int, dtype=torch.float32):
     slabs = PoleSlabs(*(torch.ones((b, p), dtype=dtype) for _ in PoleSlabs._fields))
     pp = ops.PoleParams(
@@ -321,11 +434,11 @@ def test_kernel_wrapper_checks_dtype_and_shape_before_launch():
 
 def _on_card(slabs: PoleSlabs, pp, cap):
     dev = torch.device("cuda")
-    return (
-        PoleSlabs(*(x.to(dev) for x in slabs)),
-        type(pp)(*(x.to(dev) for x in pp)),
-        None if cap is None else cap.to(dev),
-    )
+    if isinstance(pp, PolePacks):
+        pp_d = PolePacks(ops.PoleParams(*(x.to(dev) for x in pp.packs)), pp.index.to(dev))
+    else:
+        pp_d = type(pp)(*(x.to(dev) for x in pp))
+    return PoleSlabs(*(x.to(dev) for x in slabs)), pp_d, None if cap is None else cap.to(dev)
 
 
 def _assert_kernel_matches(slabs: PoleSlabs, pp, cap) -> None:
@@ -454,3 +567,26 @@ def test_cuda_stacked_scenarios_step_through_the_kernel():
         violation += ts_c.info["grid/violation"]
         state_d, state_c = ts_d.state, ts_c.state
     assert (violation[12:] > 0).all() and (violation[:12] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [48, 16383])
+def test_cuda_kernel_takes_a_heterogeneous_fleets_packs(batch):
+    """The fleet of benchmarks/fleet_throughput.py (paper_16, deep_4x4,
+    single_dc_8 padded to P = 17, Nn = 5; three packs) in one launch, with
+    an unlimited cap and binding per-station caps, against the plain version;
+    the packed instance's blocks per SM and waves at 16383 envs; the
+    wrapper's shared-memory count equal to the kernel's own."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the chargax_step kernel has no CPU mode")
+    for p, nn, k in ((17, 5, None), (17, 5, 3), (17, 5, 1000), (ops.MAX_POLES, ops.MAX_NODES, None),
+                     (ops.MAX_POLES, ops.MAX_NODES, 2)):
+        assert ops.smem_bytes(p, nn, k) == ops.kernel_smem_bytes(p, nn, k), (p, nn, k)
+    params = _fleet_params(batch // 3)
+    pp = params.pole
+    slabs = _fleet_slabs(params, seed=batch)
+    for cap in (None, _station_caps(slabs, pp)):
+        _assert_kernel_matches(slabs, pp, cap)
+    per_sm, blocks = ops.blocks_per_sm(batch, 17, 5, n_packs=3)
+    sms = torch.cuda.get_device_properties(torch.device("cuda")).multi_processor_count
+    assert blocks <= per_sm * sms, (per_sm, sms, blocks)

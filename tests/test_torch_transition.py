@@ -121,9 +121,10 @@ def assert_close(got, want, tol=TIGHT, exact=(), name=""):
 # ---------------------------------------------------------------------------
 # Replay of the JAX package's arrival draws (transition.py:531-578)
 # ---------------------------------------------------------------------------
-def replay_arrive_draws(params, state, key):
-    """The draws ``repro.core.transition.arrive_cars(params, state, key)``
-    makes for ONE env, by the same key path and the same calls."""
+def replay_arrive_draws(params, state, key, rate_extra=None):
+    """The draws ``repro.core.transition.arrive_cars(params, state, key,
+    rate_extra)`` makes for ONE env, by the same key path and the same calls
+    (``rate_extra``: a city's extra arrival rate for the station)."""
     n = state.occupied.shape[0]
     k_m, k_port = jax.random.split(key)
     spd = params.arrival_rate.shape[0]
@@ -131,6 +132,8 @@ def replay_arrive_draws(params, state, key):
     rate = params.arrival_rate[jnp.mod(state.t, spd)] * params.arrival_day_scale[
         jnp.mod(state.day, n_days)
     ]
+    if rate_extra is not None:
+        rate = rate + rate_extra
     m = jax.random.poisson(k_m, rate).astype(jnp.int32)
     probs = (
         params.car_probs
