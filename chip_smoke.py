@@ -160,13 +160,34 @@ Phases, in order (any failure raises and the script exits non-zero):
    ``examples/city_rollout.py`` fleet under city_ring_evening over 4096
    candidate layouts (ring, grid, clustered and 4093 drawn in the 5 km disc
    from numpy seed 0), one episode under max-charge: ms, profit range, best,
-   and one step's ``rates + overflow == stream`` per fleet within 1e-4.
+   and one step's ``rates + overflow == stream`` per fleet within 1e-4;
+28. telemetry at full width: ``rl_train.main`` with ``--fused --num-envs
+   16384 --rollout 300 --timesteps 4915200`` (one update) and
+   ``--metrics-out``/``--profile`` into a temporary directory: exactly 308
+   ``chargax_step`` launches (300 and the probe's 8); the JSONL read back (a
+   manifest with backend ``cuda``, this card's ``device_kind`` and
+   ``device_count`` 1, and a ``train`` record with the JAX launcher's keys);
+   the gzipped trace within ``check_trace_budget``'s 8192 KB, holding every
+   PPO phase, CUDA kernel events and each ``chargax_step`` launched (by the
+   trace's correlation ids) inside ``env/fused_transition``; a per-phase
+   table of the probe's 8 rollout steps (calls, host ms, device µs and
+   kernels a call, each kernel in its innermost phase) and the share of the
+   rollout's device time outside every ``env/*`` and ``wrap/*`` phase; then
+   ``assert_one_compiled_step`` over the 25 catalog scenarios lowered on one
+   paper_16 env (25 launches), and its ``RecompileError`` for a
+   ``single_dc_8`` lowering, naming the fields whose shapes differ;
+29. what the annotations cost: phase 4's greedy episode with annotations
+   disabled and enabled (no profiler session), in turns (off, on, on, off),
+   env-steps/s by CUDA events; the host µs of one ``with annotate(...)``
+   each way over 10^5 calls, times the 5 phases of an env step and the 7 of
+   a PPO rollout step (recorded, not gated).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and before that a ``{"kernels": [...]}``
 line with all four kernels (``chargax_step``'s launches summed over the
-episode of phase 4, the training of phases 20 and 23, the sweep of phase 24
-and the fleet phases 25-27, by path, with the fleet route's pack times).  Needs the repository's
+episode of phase 4, the training of phases 20 and 23, the sweep of phase 24,
+the fleet phases 25-27 and the telemetry phase 28, by path, with the fleet
+route's pack times).  Needs the repository's
 ``src/`` beside this file.  Every path runs at its full depth.
 """
 from __future__ import annotations
@@ -174,12 +195,15 @@ from __future__ import annotations
 import dataclasses
 import functools
 import gc
+import gzip
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -219,8 +243,9 @@ from repro_torch.rl import (  # noqa: E402
     serve,
 )
 from repro_torch.rl.networks import ActorCritic  # noqa: E402
+from repro_torch import obs  # noqa: E402
 from repro_torch.obs import MetricsAccumulator  # noqa: E402
-from repro_torch.rl.ppo import ReplayDraws, StepDraws, Transition  # noqa: E402
+from repro_torch.rl.ppo import DEFAULT_KPI_METRICS, ReplayDraws, StepDraws, Transition  # noqa: E402
 from repro_torch.utils import replace  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, float32 (non-tensor-core)
@@ -1830,6 +1855,214 @@ def coupled_fleets(dev: torch.device) -> dict:
             "conservation_err": cons, "launches": counts["chargax_step"]}
 
 
+# phase 28: the phases one PPO rollout step crosses on the fused route, and
+# the keys of rl_train's train record (the JAX launcher's, rl_train.py:272-284)
+ROLLOUT_PHASES = (
+    "wrap/LogWrapper", "wrap/AutoReset", "env/decode", "env/fused_transition",
+    "env/depart_arrive", "env/reward", "env/observe",
+)
+TRACE_PHASES = ROLLOUT_PHASES + ("ppo/rollout", "ppo/gae", "ppo/update", "profile/run_one_update")
+TRAIN_KEYS = ("wall_s", "env_steps_per_sec", "rollout_reward_first", "rollout_reward_last",
+              "episode_return_last")
+TELEMETRY_TIMESTEPS = NUM_ENVS * PPO_SHAPE["rollout_steps"]  # one update
+PROBE_STEPS = 8  # rl_train's probe rollout: min(--rollout, 8)
+# the device-side categories of a chrome trace (the rest run on the host)
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset", "gpu_user_annotation")
+
+
+def read_trace(path: str) -> tuple[dict[str, list[tuple[float, float, int]]], list[dict]]:
+    """A gzipped chrome trace's host phase spans ``{name: [(start, end, tid)]}``
+    (µs) and its kernels, each ``{name, dur, launch_ts, tid}`` with the host
+    launch that the trace's correlation id names (``launch_ts`` None where
+    the trace holds no such launch)."""
+    with gzip.open(path, "rt") as f:
+        events = json.load(f)["traceEvents"]
+    spans: dict[str, list[tuple[float, float, int]]] = {}
+    launches: dict[int, dict] = {}
+    raw_kernels = []
+    for e in events:
+        cat, args = e.get("cat"), e.get("args") or {}
+        if cat == "user_annotation":
+            spans.setdefault(e["name"], []).append((e["ts"], e["ts"] + e["dur"], e["tid"]))
+        elif cat == "kernel":
+            raw_kernels.append(e)
+        elif cat not in _DEVICE_CATS and "correlation" in args and e.get("ph") == "X":
+            launches[args["correlation"]] = e
+    kernels = []
+    for k in raw_kernels:
+        launch = launches.get((k.get("args") or {}).get("correlation"))
+        kernels.append({
+            "name": k["name"], "dur": float(k["dur"]),
+            "launch_ts": None if launch is None else launch["ts"],
+            "tid": None if launch is None else launch["tid"],
+        })
+    return spans, kernels
+
+
+def innermost_phase(spans: dict, ts: float, tid) -> str | None:
+    """The phase whose span, on thread ``tid``, holds ``ts`` and starts last."""
+    best, best_start = None, -math.inf
+    for name, intervals in spans.items():
+        for start, end, t in intervals:
+            if t == tid and start <= ts <= end and start > best_start:
+                best, best_start = name, start
+    return best
+
+
+def telemetry(env: ChargaxEnv) -> dict:
+    """Phase 28: ``rl_train --fused --num-envs 16384 --metrics-out --profile``
+    (one update) into a temporary directory, the JSONL and the trace read
+    back; the per-phase split of the probe's rollout steps; the catalog
+    preflight, and its refusal of a foreign station."""
+    dev = env.device
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs.") as tmp:
+        path, prof = os.path.join(tmp, "metrics.jsonl"), os.path.join(tmp, "trace")
+        reset_launch_counts()
+        rl_train.main([
+            "--fused", "--num-envs", str(NUM_ENVS), "--rollout", str(PPO_SHAPE["rollout_steps"]),
+            "--timesteps", str(TELEMETRY_TIMESTEPS), "--metrics-out", path, "--profile", prof,
+        ])
+        counts = launch_counts()
+        expected = PPO_SHAPE["rollout_steps"] + PROBE_STEPS
+        check(
+            counts == {"chargax_step": expected, "flash_attention": 0, "mamba2_ssd": 0, "rwkv6_wkv": 0},
+            f"telemetry launches {counts}, expected {expected} chargax_step",
+        )
+        manifest, record = obs.read_jsonl(path)
+        check(manifest["kind"] == "manifest" and manifest["backend"] == "cuda"
+              and manifest["device_kind"] == torch.cuda.get_device_name(0)
+              and manifest["device_count"] == 1 and manifest["fused_impl"] == "cuda",
+              f"manifest {manifest}")
+        want = {"kind", "schema_version", *TRAIN_KEYS, *(f"kpi/{k}" for k in DEFAULT_KPI_METRICS)}
+        check(record["kind"] == "train" and set(record) == want, f"train record keys {sorted(record)}")
+        check(all(math.isfinite(record[k]) for k in want - {"kind", "schema_version"}),
+              f"train record not finite: {record}")
+        trace_path = obs.latest_trace(prof)
+        check(trace_path is not None, f"no trace under {prof}")
+        trace_kb = obs.check_trace_budget(prof) / 1024.0
+        spans, kernels = read_trace(trace_path)
+    missing = [p for p in TRACE_PHASES if p not in spans]
+    check(not missing, f"trace lacks the phases {missing}")
+    check(len(kernels) > 0, "the trace holds no CUDA kernel event")
+    chargax = [k for k in kernels if "chargax_step" in k["name"]]
+    check(len(chargax) == PROBE_STEPS, f"{len(chargax)} chargax_step kernels in the trace, expected {PROBE_STEPS}")
+    outside = [k for k in chargax
+               if k["launch_ts"] is None or innermost_phase(spans, k["launch_ts"], k["tid"]) != "env/fused_transition"]
+    check(not outside, f"{len(outside)} of {len(chargax)} chargax_step launches outside env/fused_transition")
+
+    # the probe's rollout steps, each kernel counted once, in its innermost phase
+    (r0, r1, rtid), = spans["ppo/rollout"]
+    inside = [k for k in kernels if k["launch_ts"] is not None and k["tid"] == rtid and r0 <= k["launch_ts"] <= r1]
+    per_phase: dict[str, dict] = {p: {"us": 0.0, "kernels": 0} for p in ROLLOUT_PHASES + ("ppo/rollout",)}
+    for k in inside:
+        phase = innermost_phase(spans, k["launch_ts"], k["tid"])
+        per_phase[phase]["us"] += k["dur"]
+        per_phase[phase]["kernels"] += 1
+    rollout_us = sum(v["us"] for v in per_phase.values())
+    table = {}
+    print(f"telemetry: probe rollout of {PROBE_STEPS} steps x {NUM_ENVS} envs, per phase "
+          "(calls, host ms a call, device us a call, kernels a call; innermost phase):")
+    for p in ROLLOUT_PHASES:
+        calls = [(s, e) for s, e, t in spans[p] if t == rtid and r0 <= s <= r1]
+        check(len(calls) == PROBE_STEPS, f"{p}: {len(calls)} spans in the rollout, expected {PROBE_STEPS}")
+        row = {
+            "calls": len(calls),
+            "host_ms_per_call": sum(e - s for s, e in calls) / len(calls) / 1000.0,
+            "device_us_per_call": per_phase[p]["us"] / len(calls),
+            "kernels_per_call": per_phase[p]["kernels"] / len(calls),
+        }
+        table[p] = row
+        print(f"  {p:22s} {row['calls']:3d} {row['host_ms_per_call']:9.4f} "
+              f"{row['device_us_per_call']:10.2f} {row['kernels_per_call']:8.2f}")
+    uncovered = per_phase["ppo/rollout"]
+    uncovered_share = uncovered["us"] / rollout_us if rollout_us else None
+    print(f"  outside env/* and wrap/* (the policy, the rollout buffers): "
+          f"{uncovered['us'] / PROBE_STEPS:.2f} us and {uncovered['kernels'] / PROBE_STEPS:.2f} "
+          f"kernels a step, share of the rollout's device time {uncovered_share}")
+
+    # the preflight: the whole catalog on one paper_16 env, then a foreign station
+    reset_launch_counts()
+    catalog = [s.make_params(env) for s in scenarios.CATALOG]
+    n_checked = obs.assert_one_compiled_step(env, catalog, label="catalog on paper_16")
+    preflight_launches = launch_counts()["chargax_step"]
+    check(n_checked == len(catalog) == 25 and preflight_launches == 25,
+          f"preflight checked {n_checked}, {preflight_launches} launches")
+    small = ChargaxEnv(EnvConfig(architecture="single_dc_8", fused_step=True), device=dev)
+    mixed = [catalog[0], scenarios.CATALOG[0].make_params(small)]
+    try:
+        obs.assert_one_compiled_step(env, mixed, label="paper_16 against single_dc_8")
+    except obs.RecompileError as err:
+        fields = sorted({e.name for e in err.events})
+    else:
+        raise AssertionError("a single_dc_8 lowering passed the paper_16 preflight")
+    check({"member", "node_budget", "evse_voltage"} <= set(fields), f"mismatch named {fields}")
+    print(f"telemetry: preflight 25 catalog scenarios on one paper_16 env, one step each "
+          f"({preflight_launches} launches); single_dc_8 refused, fields {fields}")
+    return {
+        "trace_kb": trace_kb,
+        "trace_kernels": len(kernels),
+        "chargax_in_fused_transition": len(chargax),
+        "train_record": record,
+        "rollout_phases": table,
+        "rollout_device_us_per_step": rollout_us / PROBE_STEPS,
+        "uncovered_device_share": uncovered_share,
+        "mismatch_fields": fields,
+        "launches": counts["chargax_step"] + preflight_launches,
+    }
+
+
+def annotation_cost(env: ChargaxEnv, policy, net, gen) -> dict:
+    """Phase 29: phase 4's greedy episode with annotations disabled and
+    enabled (no profiler session), in turns, by CUDA events; and the host
+    µs of one ``with annotate(...)`` each way over 10^5 calls."""
+    steps = env.config.episode_steps
+
+    def episode_s(enabled: bool) -> float:
+        prev = obs.enable_trace_annotations(enabled)
+        try:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            evaluate(env, policy, net, gen, num_episodes=NUM_ENVS, device=env.device)
+            end.record()
+            torch.cuda.synchronize()
+        finally:
+            obs.enable_trace_annotations(prev)
+        return start.elapsed_time(end) / 1000.0
+
+    runs: dict[str, list[float]] = {"disabled": [], "enabled": []}
+    for enabled in (False, True, True, False):
+        runs["enabled" if enabled else "disabled"].append(NUM_ENVS * steps / episode_s(enabled))
+
+    def with_us(enabled: bool, n: int = 100_000) -> float:
+        prev = obs.enable_trace_annotations(enabled)
+        try:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                with obs.annotate("env/decode"):
+                    pass
+            return (time.perf_counter() - t0) * 1e6 / n
+        finally:
+            obs.enable_trace_annotations(prev)
+
+    per_with = {"disabled": with_us(False), "enabled": with_us(True)}
+    # annotated phases a step: 5 in an env step (evaluate), 7 under PPO's wrappers
+    out = {
+        "episode_env_steps_per_s": runs,
+        "with_us": per_with,
+        "eval_step_us": {k: 5 * v for k, v in per_with.items()},
+        "ppo_rollout_step_us": {k: 7 * v for k, v in per_with.items()},
+    }
+    print(
+        "annotations: episode env-steps/s disabled "
+        + ", ".join(f"{v:.0f}" for v in runs["disabled"])
+        + "; enabled " + ", ".join(f"{v:.0f}" for v in runs["enabled"])
+        + f"; one with: disabled {per_with['disabled']:.4f} us, enabled {per_with['enabled']:.4f} us; "
+        f"a PPO rollout step (7 phases): {out['ppo_rollout_step_us']['disabled']:.3f} / "
+        f"{out['ppo_rollout_step_us']['enabled']:.3f} us"
+    )
+    return out
+
+
 def check_kpis(result: dict, label: str) -> None:
     check(all(math.isfinite(v) for v in result.values()), f"{label}: non-finite KPIs {result}")
     check(result["energy_delivered_kwh"] > 0, f"{label}: no energy delivered")
@@ -2026,7 +2259,17 @@ def main() -> int:
     lap = time.perf_counter()
     coupled = coupled_fleets(dev)
     phase_s[27] = time.perf_counter() - lap
-    print("scenario and fleet phases, host s: " + " ".join(f"{k}={v:.1f}" for k, v in phase_s.items()))
+
+    # --- 28. telemetry at full width -------------------------------------------------------
+    lap = time.perf_counter()
+    telem = telemetry(env)
+    phase_s[28] = time.perf_counter() - lap
+
+    # --- 29. what the annotations cost -----------------------------------------------------
+    lap = time.perf_counter()
+    annot = annotation_cost(env, policy, net, gen)
+    phase_s[29] = time.perf_counter() - lap
+    print("scenario, fleet and telemetry phases, host s: " + " ".join(f"{k}={v:.1f}" for k, v in phase_s.items()))
 
     metrics = {
         "env_steps_per_s": env_steps_per_s,
@@ -2045,7 +2288,9 @@ def main() -> int:
         "catalog_sweep": sweep,
         "fleet": {**fleet_summary, "card_vs_cpu": fleet_check},
         "coupled_fleets": coupled,
-        "scenario_and_fleet_phases_s": phase_s,
+        "telemetry": telem,
+        "annotations": annot,
+        "scenario_fleet_telemetry_phases_s": phase_s,
     }
     print(json.dumps({"metrics": metrics}))
     kernels = [
@@ -2056,7 +2301,7 @@ def main() -> int:
             "replaces": "src/repro/kernels/chargax_step/kernel.py:26",
             "launches": launches + ppo_summary["chargax_step_launches"]
             + mix_summary["chargax_step_launches"] + sweep["launches"] + fleet_check["launches"]
-            + fleet_summary["launches"] + coupled["launches"],
+            + fleet_summary["launches"] + coupled["launches"] + telem["launches"],
             "launches_by_path": {
                 "evaluate": launches,
                 "make_train": ppo_summary["chargax_step_launches"],
@@ -2065,6 +2310,7 @@ def main() -> int:
                 "fleet_card_vs_cpu": fleet_check["launches"],
                 "fleet": fleet_summary["launches"],
                 "fleet_grid_city_coupled": coupled["launches"],
+                "telemetry": telem["launches"],
             },
             "max_abs_err": max(max_err, stacked_err["kernel_max_abs_err"], fleet_check["kernel_max_abs_err"],
                                fleet_summary["kernel"]["max_abs_err"]),

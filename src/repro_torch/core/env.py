@@ -28,6 +28,7 @@ from repro_torch.core.state import EnvParams, EnvState, RewardWeights, scenario_
 from repro_torch.core.transition import GRID_CAP_UNLIMITED, AllocationResult
 from repro_torch.envs import spaces
 from repro_torch.envs.base import Environment, TimeStep
+from repro_torch.obs.trace import annotate
 from repro_torch.utils import resolve_device, steps_per_day
 
 Tensor = torch.Tensor
@@ -321,20 +322,23 @@ class ChargaxEnv(Environment):
         if cfg.fused_step:
             from repro_torch.kernels.chargax_step import ops as fused_ops
 
-            tgt_evse, tgt_batt = transition.decode(
-                params,
-                state,
-                action,
-                discretization=cfg.discretization,
-                allow_v2g=cfg.allow_v2g,
-                action_mode=cfg.action_mode,
-            )
-            alloc, charged = fused_ops.fused_transition(
-                params, state, tgt_evse, tgt_batt, cfg.dt_hours
-            )
+            with annotate("env/decode"):
+                tgt_evse, tgt_batt = transition.decode(
+                    params,
+                    state,
+                    action,
+                    discretization=cfg.discretization,
+                    allow_v2g=cfg.allow_v2g,
+                    action_mode=cfg.action_mode,
+                )
+            with annotate("env/fused_transition"):
+                alloc, charged = fused_ops.fused_transition(
+                    params, state, tgt_evse, tgt_batt, cfg.dt_hours
+                )
             return self.settle_tail(rng, state, alloc, charged, params)
         applied = self.request_stage(state, action, params)
-        alloc = transition.allocate(params, state, applied)
+        with annotate("env/allocate"):
+            alloc = transition.allocate(params, state, applied)
         return self.finish_step(rng, state, alloc, params)
 
     def request_stage(
@@ -343,15 +347,17 @@ class ChargaxEnv(Environment):
         """Pipeline stages decode + request: action -> constrained currents."""
         params = params if params is not None else self.default_params
         cfg = self.config
-        tgt_evse, tgt_batt = transition.decode(
-            params,
-            state,
-            action,
-            discretization=cfg.discretization,
-            allow_v2g=cfg.allow_v2g,
-            action_mode=cfg.action_mode,
-        )
-        return transition.request(params, state, tgt_evse, tgt_batt, cfg.dt_hours)
+        with annotate("env/decode"):
+            tgt_evse, tgt_batt = transition.decode(
+                params,
+                state,
+                action,
+                discretization=cfg.discretization,
+                allow_v2g=cfg.allow_v2g,
+                action_mode=cfg.action_mode,
+            )
+        with annotate("env/apply_actions"):
+            return transition.request(params, state, tgt_evse, tgt_batt, cfg.dt_hours)
 
     def finish_step(
         self,
@@ -370,7 +376,8 @@ class ChargaxEnv(Environment):
         Injected :class:`ArrivalDraws` carry their own count, which it leaves
         as it is."""
         params = params if params is not None else self.default_params
-        charged = transition.deliver(params, state, alloc.applied, self.config.dt_hours)
+        with annotate("env/charge_cars"):
+            charged = transition.deliver(params, state, alloc.applied, self.config.dt_hours)
         return self.settle_tail(rng, state, alloc, charged, params, arrival_rate_extra)
 
     def settle_tail(
@@ -388,12 +395,14 @@ class ChargaxEnv(Environment):
         params = params if params is not None else self.default_params
         cfg = self.config
         dt = cfg.dt_hours
-        if isinstance(rng, ArrivalDraws):
-            draws = rng
-        else:
-            draws = sampling.draw_arrivals(params, charged.state, rng, arrival_rate_extra)
-        moved = transition.depart_arrive(params, charged.state, draws)
-        settled = transition.settle(params, state, alloc, charged, moved, dt)
+        with annotate("env/depart_arrive"):
+            if isinstance(rng, ArrivalDraws):
+                draws = rng
+            else:
+                draws = sampling.draw_arrivals(params, charged.state, rng, arrival_rate_extra)
+            moved = transition.depart_arrive(params, charged.state, draws)
+        with annotate("env/reward"):
+            settled = transition.settle(params, state, alloc, charged, moved, dt)
         new_state = transition.advance_time(params, moved.state, settled.profit)
         done = new_state.t >= cfg.episode_steps
         pen = settled.penalties
@@ -417,7 +426,8 @@ class ChargaxEnv(Environment):
             "grid/violation": alloc.violation_kw,
             "grid/setpoint_dev": settled.setpoint_dev_kw,
         }
-        obs = self.observe(new_state, params)
+        with annotate("env/observe"):
+            obs = self.observe(new_state, params)
         return TimeStep(obs, new_state, settled.reward, done, info)
 
     # ------------------------------------------------------------------

@@ -54,6 +54,29 @@ class Box(Space):
         return f"Box({lo:g}, {hi:g}, shape={self.shape})"
 
 
+class Discrete(Space):
+    """A single categorical choice in ``{0, ..., n-1}``."""
+
+    def __init__(self, n: int, dtype: torch.dtype = torch.int32):
+        self.n = int(n)
+        self.shape = ()
+        self.dtype = dtype
+
+    def contains(self, x: Any) -> bool:
+        x = np.asarray(x)
+        return bool(
+            x.shape == ()
+            and np.issubdtype(x.dtype, np.integer)
+            and 0 <= int(x) < self.n
+        )
+
+    def __repr__(self) -> str:
+        return f"Discrete({self.n})"
+
+    def __eq__(self, other: Any) -> bool:
+        return isinstance(other, Discrete) and self.n == other.n
+
+
 class MultiDiscrete(Space):
     """A grid of categorical choices: ``nvec[i]`` options per element.
 
@@ -103,4 +126,6 @@ def batch(space: Space, n: int) -> Space:
         )
     if isinstance(space, MultiDiscrete):
         return MultiDiscrete(np.broadcast_to(space.nvec, (n,) + space.shape), space.dtype)
+    if isinstance(space, Discrete):
+        return MultiDiscrete(np.full((n,), space.n), space.dtype)
     raise TypeError(f"cannot batch {type(space).__name__}")

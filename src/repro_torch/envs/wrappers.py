@@ -31,6 +31,7 @@ import torch
 from repro_torch.envs import spaces
 from repro_torch.envs.base import Environment, TimeStep
 from repro_torch.obs.metrics import MetricsAccumulator
+from repro_torch.obs.trace import annotate
 
 Tensor = torch.Tensor
 
@@ -112,11 +113,12 @@ class AutoReset(Wrapper):
             step_rng, reset_rng = rng.step, rng.reset
         else:
             step_rng = reset_rng = rng
-        ts = self._env.step(step_rng, state, action, params)
-        r_obs, r_state = self._env.reset(reset_rng, params, num_envs=ts.done.shape[0])
-        obs = _where_done(ts.done, r_obs, ts.obs)
-        new_state = _where_done(ts.done, r_state, ts.state)
-        return TimeStep(obs, new_state, ts.reward, ts.done, ts.info)
+        with annotate("wrap/AutoReset"):
+            ts = self._env.step(step_rng, state, action, params)
+            r_obs, r_state = self._env.reset(reset_rng, params, num_envs=ts.done.shape[0])
+            obs = _where_done(ts.done, r_obs, ts.obs)
+            new_state = _where_done(ts.done, r_state, ts.state)
+            return TimeStep(obs, new_state, ts.reward, ts.done, ts.info)
 
 
 class LogState(NamedTuple):
@@ -164,26 +166,27 @@ class LogWrapper(Wrapper):
     def step(
         self, rng: Any, state: LogState, action: Any, params: Any | None = None
     ) -> TimeStep:
-        ts = self._env.step(rng, state.env_state, action, params)
-        ep_ret = state.episode_return + ts.reward
-        ep_len = state.episode_length + 1
-        done = ts.done
-        acc = state.metrics
-        if acc is not None:
-            acc = acc.update({"reward": ts.reward, **ts.info})
-        new_state = LogState(
-            env_state=ts.state,
-            episode_return=torch.where(done, 0.0, ep_ret),
-            episode_length=torch.where(done, 0, ep_len),
-            returned_episode_return=torch.where(done, ep_ret, state.returned_episode_return),
-            returned_episode_length=torch.where(done, ep_len, state.returned_episode_length),
-            metrics=acc,
-        )
-        info = dict(ts.info)
-        info["episode_return"] = new_state.returned_episode_return
-        info["episode_length"] = new_state.returned_episode_length
-        info["returned_episode"] = done
-        return TimeStep(ts.obs, new_state, ts.reward, done, info)
+        with annotate("wrap/LogWrapper"):
+            ts = self._env.step(rng, state.env_state, action, params)
+            ep_ret = state.episode_return + ts.reward
+            ep_len = state.episode_length + 1
+            done = ts.done
+            acc = state.metrics
+            if acc is not None:
+                acc = acc.update({"reward": ts.reward, **ts.info})
+            new_state = LogState(
+                env_state=ts.state,
+                episode_return=torch.where(done, 0.0, ep_ret),
+                episode_length=torch.where(done, 0, ep_len),
+                returned_episode_return=torch.where(done, ep_ret, state.returned_episode_return),
+                returned_episode_length=torch.where(done, ep_len, state.returned_episode_length),
+                metrics=acc,
+            )
+            info = dict(ts.info)
+            info["episode_return"] = new_state.returned_episode_return
+            info["episode_length"] = new_state.returned_episode_length
+            info["returned_episode"] = done
+            return TimeStep(ts.obs, new_state, ts.reward, done, info)
 
 
 class FleetAdapter(Wrapper):
@@ -207,8 +210,9 @@ class FleetAdapter(Wrapper):
         return self._env.reset(rng, params)
 
     def step(self, rng: Any, state: Any, action: Any, params: Any | None = None) -> TimeStep:
-        obs, state, reward, done, info = self._env.step(rng, state, action, params)
-        return TimeStep(obs, state, reward, done, info)
+        with annotate("wrap/FleetAdapter"):
+            obs, state, reward, done, info = self._env.step(rng, state, action, params)
+            return TimeStep(obs, state, reward, done, info)
 
     @property
     def observation_space(self) -> spaces.Space:

@@ -6,24 +6,32 @@
         --timesteps 19660800          # on the card: 4 updates of 16384 x 300
     PYTHONPATH=src python -m repro_torch.launch.rl_train --fused --v2g \\
         --num-envs 16384 --timesteps 19660800   # across the V2G mix, then its report
+    PYTHONPATH=src python -m repro_torch.launch.rl_train --fused --num-envs 16384 \\
+        --timesteps 4915200 --metrics-out results/ppo.jsonl --profile results/trace
 
 trains the paper's actor-critic on a batch of stations and prints the
 training rate and the rollout reward of the first and last update.
 ``--scenarios`` trains one agent across catalog scenarios (names and pack
-names, comma-separated); ``--v2g`` lets cars discharge and, without
+names, comma-separated), after a preflight that their params share one step
+(``--no-preflight`` skips it); ``--v2g`` lets cars discharge and, without
 ``--scenarios``, trains across the largest prefix of ``V2G_MIXED_PACK``
 that divides ``--num-envs``, then reports the trained policy against the
-max-charge and arbitrage baselines on the first scenario.  Without
-``--device`` it runs on the card, and raises where there is none.
+max-charge and arbitrage baselines on the first scenario.
+``--metrics-out PATH`` appends a run manifest, one ``train`` record and the
+V2G report's ``eval`` records to a JSONL file; ``--profile DIR`` then
+traces one short update (a probe) with its phases annotated and prints the
+trace's path (open it at https://ui.perfetto.dev).  Without ``--device`` it
+runs on the card, and raises where there is none.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import torch
 
-from repro_torch import scenarios
+from repro_torch import obs, scenarios
 from repro_torch.core import ChargaxEnv, EnvConfig
 from repro_torch.core.state import EnvParams
 from repro_torch.rl import evaluate, make_ppo_policy
@@ -71,17 +79,61 @@ def scenario_mix(spec: str | None, v2g: bool, num_envs: int) -> list[str] | None
     return names
 
 
-def stack_scenarios(env: ChargaxEnv, names: list[str]) -> EnvParams:
-    """The named scenarios lowered onto ``env`` and stacked."""
-    stacked = scenarios.stack_params([scenarios.make(n).make_params(env) for n in names])
+def stack_scenarios(env: ChargaxEnv, names: list[str], preflight: bool = True) -> EnvParams:
+    """The named scenarios lowered onto ``env`` and stacked; with
+    ``preflight``, first proved to share one step
+    (:func:`repro_torch.obs.assert_one_compiled_step`)."""
+    per_scenario = [scenarios.make(n).make_params(env) for n in names]
+    stacked = scenarios.stack_params(per_scenario)
     print(f"[ppo] training across {len(names)} scenarios (one table copy each)")
+    if preflight:
+        obs.assert_one_compiled_step(env, per_scenario, label=f"scenarios {','.join(names)}")
+        print(
+            f"[obs] preflight: {len(per_scenario)} scenarios share one "
+            "compiled step (no recompiles)"
+        )
     return stacked
 
 
-def v2g_report(env: ChargaxEnv, scenario: str, net) -> dict[str, dict]:
+def profile_probe(
+    args: argparse.Namespace, cfg: PPOConfig, env: ChargaxEnv, stacked: EnvParams | None
+) -> str | None:
+    """Trace ONE short PPO update into ``args.profile``; return the trace's path.
+
+    The real run stays untraced: the profiler records every op and kernel.
+    Every update runs the same code, so one update with a short rollout
+    (``min(args.rollout, 8)`` steps) and one minibatch of one epoch is the
+    profile, its phases (``env/*``, ``wrap/*``, ``ppo/*``) nested as the
+    code runs them.
+    """
+    probe_rollout = min(args.rollout, 8)
+    probe_cfg = PPOConfig(
+        total_timesteps=cfg.num_envs * probe_rollout,
+        num_envs=cfg.num_envs,
+        rollout_steps=probe_rollout,
+        num_minibatches=1,
+        update_epochs=1,
+        hidden=cfg.hidden,
+    )
+    gen = torch.Generator(device=env.device).manual_seed(args.seed)
+    with obs.trace_session(args.profile, keep_xplane=False):
+        with obs.annotate("profile/trace_and_compile"):
+            probe = make_train(probe_cfg, env, scenario_params=stacked, device=env.device)
+            runner = probe.init(gen)
+        with obs.annotate("profile/run_one_update"):
+            probe.update(runner)
+            if env.device.type == "cuda":
+                torch.cuda.synchronize(env.device)
+    return obs.latest_trace(args.profile)
+
+
+def v2g_report(
+    env: ChargaxEnv, scenario: str, net, writer: obs.MetricsWriter | None = None
+) -> dict[str, dict]:
     """The trained greedy policy against the always-max and arbitrage
     baselines over ``V2G_EVAL_EPISODES`` episodes of ``scenario``: profit,
-    energy discharged from cars, discharge share and missing energy."""
+    energy discharged from cars, discharge share and missing energy, each
+    also an ``eval`` record tagged ``<scenario>/<policy>`` in ``writer``."""
     params = scenarios.make(scenario).make_params(env)
     policies = {
         "ppo": (make_ppo_policy(env), net),
@@ -93,7 +145,7 @@ def v2g_report(env: ChargaxEnv, scenario: str, net) -> dict[str, dict]:
         gen = torch.Generator(device=env.device).manual_seed(V2G_EVAL_SEED)
         res = evaluate(
             env, policy, policy_params, gen, V2G_EVAL_EPISODES, env_params=params,
-            device=env.device,
+            writer=writer, tag=f"{scenario}/{name}", device=env.device,
         )
         print(
             f"[v2g eval] {scenario} {name}: "
@@ -116,9 +168,11 @@ def run_train(args: argparse.Namespace) -> dict:
         ),
         device=args.device,
     )
+    # the fused step's route: the CUDA kernel on the card, its plain version elsewhere
+    route = "cuda" if env.device.type == "cuda" else "plain"
     if args.fused:
-        route = "the CUDA kernel" if env.device.type == "cuda" else "its plain version"
-        print(f"[ppo] fused step kernel ON ({route} on {env.device})")
+        name = "the CUDA kernel" if route == "cuda" else "its plain version"
+        print(f"[ppo] fused step kernel ON ({name} on {env.device})")
     print(f"[ppo] obs={env.observation_space} actions={env.action_space}")
     cfg = PPOConfig(
         total_timesteps=args.timesteps,
@@ -126,12 +180,13 @@ def run_train(args: argparse.Namespace) -> dict:
         rollout_steps=args.rollout,
     )
     names = scenario_mix(args.scenarios, args.v2g, args.num_envs)
-    stacked = stack_scenarios(env, names) if names else None
+    stacked = stack_scenarios(env, names, args.preflight) if names else None
     train = make_train(cfg, env, scenario_params=stacked, device=env.device)
     t0 = time.perf_counter()
     out = train(torch.Generator(device=env.device).manual_seed(args.seed))
     metrics = {k: v.tolist() for k, v in out["metrics"].items()}  # waits for the device
     wall = time.perf_counter() - t0
+    trace = profile_probe(args, cfg, env, stacked) if args.profile else None
     rr = metrics["rollout_reward"]
     print(
         f"[ppo] {args.timesteps:,} steps in {wall:.1f}s "
@@ -144,8 +199,45 @@ def run_train(args: argparse.Namespace) -> dict:
             "[kpi] last update, per env-step: "
             + " ".join(f"{k}={v:.3f}" for k, v in sorted(kpis.items()))
         )
-    if args.v2g and names:
-        out["v2g_eval"] = v2g_report(env, names[0], out["runner_state"].params)
+    if args.profile:
+        print(
+            f"[obs] profile trace: {trace} "
+            "(open at https://ui.perfetto.dev — phases env/*, wrap/*, ppo/*)"
+        )
+    sink = (
+        obs.MetricsWriter(
+            args.metrics_out,
+            run="rl_train",
+            scenario=args.scenario,
+            scenarios=names,
+            timesteps=args.timesteps,
+            num_envs=cfg.num_envs,
+            seed=args.seed,
+            fused_step=args.fused,
+            fused_impl=route if args.fused else None,
+            backend=env.device.type,
+            device_kind=obs.sinks.device_kind(env.device),
+        )
+        if args.metrics_out
+        else contextlib.nullcontext()
+    )
+    with sink as writer:
+        if writer is not None:
+            writer.write(
+                {
+                    "wall_s": round(wall, 2),
+                    "env_steps_per_sec": round(args.timesteps / wall, 1),
+                    "rollout_reward_first": rr[0],
+                    "rollout_reward_last": rr[-1],
+                    "episode_return_last": metrics["episode_return"][-1],
+                    **{f"kpi/{k}": v for k, v in kpis.items()},
+                },
+                kind="train",
+            )
+        if args.v2g and names:
+            out["v2g_eval"] = v2g_report(env, names[0], out["runner_state"].params, writer)
+    if args.metrics_out:
+        print(f"[obs] metrics JSONL: {args.metrics_out}")
     return out
 
 
@@ -177,6 +269,26 @@ def main(argv=None) -> dict:
     ap.add_argument("--rollout", type=int, default=300)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    ap.add_argument(
+        "--profile",
+        default=None,
+        metavar="DIR",
+        help="after training, trace one short update to DIR with its phases annotated "
+        "(env/*, wrap/*, ppo/*; open at ui.perfetto.dev)",
+    )
+    ap.add_argument(
+        "--metrics-out",
+        default=None,
+        metavar="PATH",
+        help="append run manifest + train/eval KPI records to a JSONL sink",
+    )
+    ap.add_argument(
+        "--preflight",
+        action=argparse.BooleanOptionalAction,
+        default=True,
+        help="with --scenarios/--v2g: check the scenarios share ONE step before "
+        "training; --no-preflight skips",
+    )
     return run_train(ap.parse_args(argv))
 
 

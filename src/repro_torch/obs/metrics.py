@@ -14,6 +14,7 @@ the device during a rollout and cross to the host once, at
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -124,3 +125,20 @@ def kpi_summary(acc: MetricsAccumulator, prefix: str = "kpi/") -> dict[str, Tens
     for n, m in acc.maxes.items():
         out[f"{prefix}{n}_max"] = m.max()
     return out
+
+
+def tree_find_accumulators(tree: Any) -> list[MetricsAccumulator]:
+    """Every :class:`MetricsAccumulator` inside ``tree`` (NamedTuples,
+    tuples, lists, dicts and dataclasses, e.g. a ``LogWrapper`` state), in
+    the order of its fields: how a host finds the KPIs to flush."""
+    if isinstance(tree, MetricsAccumulator):
+        return [tree]
+    if isinstance(tree, dict):
+        children = list(tree.values())
+    elif isinstance(tree, (list, tuple)):
+        children = list(tree)
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        children = [getattr(tree, f.name) for f in dataclasses.fields(tree)]
+    else:
+        return []
+    return [acc for child in children for acc in tree_find_accumulators(child)]

@@ -3,6 +3,7 @@ from repro_torch.rl import networks
 from repro_torch.rl.baselines import (
     BASELINES,
     grid_aware_policy,
+    make_baseline_max_action,
     max_charge_policy,
     price_threshold_policy,
     random_policy,
@@ -16,6 +17,7 @@ __all__ = [
     "PPOConfig",
     "evaluate",
     "grid_aware_policy",
+    "make_baseline_max_action",
     "make_ppo_policy",
     "make_serve",
     "make_train",

@@ -14,8 +14,13 @@ from repro_torch.core.env import ChargaxEnv
 from repro_torch.core.state import EnvParams
 
 
-def max_charge_policy(env: ChargaxEnv):
-    """Paper's baseline: max level on every EVSE head, battery idle (centre)."""
+def make_baseline_max_action(env: ChargaxEnv):
+    """Paper's baseline as a policy: 'always charge to maximum potential'.
+
+    Max level on every EVSE head; battery idle (centre level).  ``obs``'s
+    leading axes set the batch shape; ``params`` and ``generator`` are
+    ignored (the policy is constant).
+    """
     d = env.config.discretization
     space = env.action_space
     a = torch.full(space.shape, 2 * d, dtype=space.dtype, device=env.device)
@@ -25,6 +30,11 @@ def max_charge_policy(env: ChargaxEnv):
         return a.expand(*obs.shape[:-1], *a.shape)
 
     return policy
+
+
+def max_charge_policy(env: ChargaxEnv):
+    """Paper's baseline: max level on every EVSE head, battery idle (centre)."""
+    return make_baseline_max_action(env)
 
 
 def random_policy(env: ChargaxEnv):

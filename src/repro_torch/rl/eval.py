@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.core.env import ChargaxEnv
 from repro_torch.core.state import EnvParams, EnvState
+from repro_torch.obs.trace import annotate
 from repro_torch.rl import networks
 from repro_torch.scenarios.stacking import expand_params, num_scenarios
 from repro_torch.utils import resolve_device
@@ -57,11 +58,12 @@ def run_episodes(
     with torch.inference_mode():
         obs, state = env.reset(generator, env_params, num_envs=num_episodes)
         ep_reward = torch.zeros(num_episodes, device=device)
-        for _ in range(env.config.episode_steps):
-            action = policy(policy_params, generator, obs)
-            ts = env.step(generator, state, action, env_params)
-            obs, state = ts.obs, ts.state
-            ep_reward += ts.reward
+        with annotate("eval/rollout"):
+            for _ in range(env.config.episode_steps):
+                action = policy(policy_params, generator, obs)
+                ts = env.step(generator, state, action, env_params)
+                obs, state = ts.obs, ts.state
+                ep_reward += ts.reward
     return state, ep_reward
 
 
@@ -73,11 +75,18 @@ def evaluate(
     num_episodes: int = 16,
     env_params: EnvParams | None = None,
     params_axis: int | None = None,
+    writer=None,
+    tag: str | None = None,
     *,
     device: torch.device | str | None = None,
 ) -> dict:
     """Run ``num_episodes`` full episodes in parallel (:func:`run_episodes`,
-    same arguments); return the mean metrics."""
+    same arguments); return the mean metrics.
+
+    ``writer``/``tag``: optionally append the result to a
+    :class:`repro_torch.obs.MetricsWriter` JSONL sink as a ``kind="eval"``
+    record.
+    """
     state, ep_reward = run_episodes(
         env, policy, policy_params, generator, num_episodes, env_params, params_axis,
         device=device,
@@ -99,7 +108,13 @@ def evaluate(
             "overtime_steps": state.overtime_steps_cum.mean(),
         }
         values = torch.stack(list(metrics.values())).tolist()  # one device sync
-    return dict(zip(metrics, values))
+    result = dict(zip(metrics, values))
+    if writer is not None:
+        writer.write(
+            {**({"tag": tag} if tag else {}), "num_episodes": num_episodes, **result},
+            kind="eval",
+        )
+    return result
 
 
 def make_ppo_policy(env: ChargaxEnv, greedy: bool = True):
@@ -125,7 +140,7 @@ def make_serve(policy):
     ``policy`` under ``torch.inference_mode()``."""
 
     def serve_step(params, generator, obs_batch):
-        with torch.inference_mode():
+        with annotate("eval/serve"), torch.inference_mode():
             return policy(params, generator, obs_batch)
 
     return serve_step

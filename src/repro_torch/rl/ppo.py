@@ -33,6 +33,7 @@ from repro_torch.core.env import ChargaxEnv
 from repro_torch.core.sampling import ArrivalDraws, ResetDraws
 from repro_torch.core.state import EnvParams
 from repro_torch.envs.wrappers import AutoReset, AutoResetDraws, LogState, LogWrapper
+from repro_torch.obs.trace import annotate
 from repro_torch.optim import (
     AdamWConfig,
     AdamWState,
@@ -269,7 +270,7 @@ class PPOTrain:
         )
         # the stored tensors enter the loss as constants; no_grad, not
         # inference_mode, whose tensors autograd refuses to save
-        with torch.no_grad():
+        with annotate("ppo/rollout"), torch.no_grad():
             for t in range(t_steps):
                 out = net(obs)
                 if isinstance(rng, _Replay):
@@ -293,7 +294,7 @@ class PPOTrain:
 
     def advantages(self, runner: RunnerState, traj: Transition) -> tuple[Tensor, Tensor]:
         """GAE over the rollout, bootstrapped from the value of the last obs."""
-        with torch.no_grad():
+        with annotate("ppo/gae"), torch.no_grad():
             last_value = runner.params(runner.obs).value
             return compute_gae(
                 traj.reward, traj.value, traj.done, last_value,
@@ -345,24 +346,25 @@ class PPOTrain:
         net, opt_state = runner.params, runner.opt_state
         params = dict(net.named_parameters())
         history: dict[str, list[Tensor]] = {}
-        for _ in range(cfg.update_epochs):
-            if isinstance(runner.rng, _Replay):
-                perm = runner.rng.permutation()
-            else:
-                perm = torch.randperm(bs, generator=runner.rng, device=self.device)
-            for i in range(cfg.num_minibatches):
-                idx = perm[i * mb : (i + 1) * mb]
-                total, aux = self.loss(
-                    net, obs[idx], action[idx], value[idx], log_prob[idx], gae[idx], targets[idx]
-                )
-                grads = torch.autograd.grad(total, list(params.values()))
-                updates, opt_state, gnorm = adamw_update(
-                    dict(zip(params, grads)), opt_state, params, self.lr, self.opt_config
-                )
-                apply_updates(params, updates)
-                for k, v in {"loss": total, "grad_norm": gnorm, **aux}.items():
-                    history.setdefault(k, []).append(v.detach())
-        losses = {k: torch.stack(v) for k, v in history.items()}
+        with annotate("ppo/update"):
+            for _ in range(cfg.update_epochs):
+                if isinstance(runner.rng, _Replay):
+                    perm = runner.rng.permutation()
+                else:
+                    perm = torch.randperm(bs, generator=runner.rng, device=self.device)
+                for i in range(cfg.num_minibatches):
+                    idx = perm[i * mb : (i + 1) * mb]
+                    total, aux = self.loss(
+                        net, obs[idx], action[idx], value[idx], log_prob[idx], gae[idx], targets[idx]
+                    )
+                    grads = torch.autograd.grad(total, list(params.values()))
+                    updates, opt_state, gnorm = adamw_update(
+                        dict(zip(params, grads)), opt_state, params, self.lr, self.opt_config
+                    )
+                    apply_updates(params, updates)
+                    for k, v in {"loss": total, "grad_norm": gnorm, **aux}.items():
+                        history.setdefault(k, []).append(v.detach())
+            losses = {k: torch.stack(v) for k, v in history.items()}
         return runner._replace(opt_state=opt_state), losses
 
     def metrics(
