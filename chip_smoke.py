@@ -180,14 +180,66 @@ Phases, in order (any failure raises and the script exits non-zero):
    disabled and enabled (no profiler session), in turns (off, on, on, off),
    env-steps/s by CUDA events; the host µs of one ``with annotate(...)``
    each way over 10^5 calls, times the 5 phases of an env step and the 7 of
-   a PPO rollout step (recorded, not gated).
+   a PPO rollout step (recorded, not gated);
+30. kernel gradients on the card: each LM kernel's ``autograd.Function``
+   (its kernel forward, the plain version's backward) against autograd
+   through the plain version on the same inputs and cotangent, output and
+   every input's gradient at phases 8/9/14's tolerances, exactly one kernel
+   launch a call and none in the backward: flash at (b, hq, hkv, l, d) =
+   (2, 8, 2, 512, 64), (1, 4, 4, 300, 128) and tinyllama's training shape
+   (8, 32, 4, 2048, 64) in bf16, (2, 4, 2, 256, 64) in fp32; SSD and WKV
+   at a ragged fp32 shape and at zamba2-1.2b's / rwkv6-3b's training shape
+   (B 2 x L 2048) in bf16;
+31. one training step, card against CPU: tinyllama with 2 layers, zamba2
+   with 6 (one group, one shared site), rwkv6 with 2, full width in fp32
+   (TF32 off), the same weights (one ``init`` on the CPU, copied) and the
+   same B 2 x L 256 batch: loss within rtol 1e-4, each gradient's norm
+   error within 1e-3 of its norm, the card's kernel launches counted;
+32. resume and preemption on the card: the trainer CLI
+   (``repro_torch.launch.train``) as subprocesses on the tinyllama smoke
+   config under ``torch.use_deterministic_algorithms(True)`` and
+   ``CUBLAS_WORKSPACE_CONFIG`` (set for them only): a straight 6-step run
+   against a 3-step run resumed to 6, the losses of steps 3-5 and the final
+   checkpoint's leaves bit-identical; a run sent SIGTERM after its 2nd step
+   exits 0 with a checkpoint;
+33. tinyllama-1.1b training at full width and depth (22 layers, bf16
+   parameters, fp32 moments, B 8 x L 2048 synthetic tokens, lr 1e-3, 30
+   steps from ``init`` seed 0) through ``make_train_step``, CUDA events
+   around each step and every kernel count reset just before it: exactly 44
+   flash launches a step (22 layers, each forward run again by its remat
+   recompute) and no other kernel of ours; loss finite, the last 5 steps'
+   mean below the first 5's; median step ms, tokens/s, peak memory; one
+   full-width checkpoint's bytes and save seconds in a temporary directory;
+35. (run right after 33, on its model) one tinyllama-1.1b step under
+   ``torch.profiler``: device busy ms, idle share, kernels a step, top
+   kernels, the flash forward kernel's share and the share of the kernels
+   launched inside the flash Function's backward (the plain attention
+   backward), by correlation id; then the Function's forward + backward
+   beside ``F.scaled_dot_product_attention``'s at the training shape;
+34. zamba2-1.2b and rwkv6-3b training at full width and depth (bf16, B 2
+   x L 2048, 5 steps each, each model freed before the next): exactly 76
+   SSD + 7 flash launches a zamba2 step (38 remat'd Mamba2 layers, the 7
+   shared-attention sites not remat'd, as in the JAX model) and 64 WKV an
+   rwkv6 step; loss finite; each step's ms and the host's ms to issue it,
+   tokens/s and peak memory; zamba2's loss falls, and one more zamba2 step
+   is profiled (device activity only: busy ms, idle share, kernels).
+   rwkv6-3b's loss rises over its steps, so a witness at the same point
+   (bf16 ``init`` seed 0, the same batches): the init weights' loss on each
+   batch (lr 0) within 5 % of each other; batch 0's bf16 gradient against
+   the fp32 one at the same weights, cosine >= 0.999 and relative error
+   <= 0.05; the fp32 loss's central-difference slope along the fp32
+   gradient within 2 % of its norm at two step lengths; the fp32 loss after
+   Adam's first update, whole and by group of leaves, beside its
+   first-order prediction (printed, not checked); then the same 5 steps
+   with fp32 parameters, each loss within 10 % of the bf16 step's.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and before that a ``{"kernels": [...]}``
 line with all four kernels (``chargax_step``'s launches summed over the
 episode of phase 4, the training of phases 20 and 23, the sweep of phase 24,
 the fleet phases 25-27 and the telemetry phase 28, by path, with the fleet
-route's pack times).  Needs the repository's
+route's pack times; each LM kernel's launches summed over its prefill and
+its training steps of phases 33-34, by path).  Needs the repository's
 ``src/`` beside this file.  Every path runs at its full depth.
 """
 from __future__ import annotations
@@ -200,10 +252,12 @@ import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -218,7 +272,15 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs.registry import build_model, get_config  # noqa: E402
 from repro_torch import city, scenarios  # noqa: E402
 from repro_torch.core import ChargaxEnv, EnvConfig, FleetEnv, sampling, transition  # noqa: E402
-from repro_torch.distributed.train_step import make_prefill_step, make_serve_step  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, SyntheticTokens  # noqa: E402
+from repro_torch.distributed.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.distributed.train_step import (  # noqa: E402
+    TrainStepConfig,
+    init_train_state,
+    make_prefill_step,
+    make_serve_step,
+    make_train_step,
+)
 from repro_torch.envs import AutoReset  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.chargax_step import ops  # noqa: E402
@@ -231,6 +293,8 @@ from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv.ref import wkv_chunked  # noqa: E402
 from repro_torch.launch import rl_train  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.models.modules import DTYPES  # noqa: E402
+from repro_torch.optim import cosine_warmup_schedule  # noqa: E402
 from repro_torch.rl import (  # noqa: E402
     PPOConfig,
     evaluate,
@@ -330,6 +394,22 @@ GRID_REPLICAS = 4096
 CITY_ARCHS = ("paper_16", "deep_4x4", "single_dc_8", "paper_16")
 CITY_SCENARIO = "city_ring_evening"
 CITY_CANDIDATES = 4096
+# LM training (phases 30-35): tinyllama-1.1b (arXiv:2401.02385) at B 8 x its
+# 2048-token context, 30 steps at the JAX trainer test's lr 1e-3 with the
+# default 100-step warmup; zamba2-1.2b and rwkv6-3b at B 2 (rwkv6-3b's
+# weights, gradients and fp32 moments take ~37 GB before activations)
+TINY = "tinyllama-1.1b"
+TRAIN_B, TRAIN_L, TRAIN_STEPS, TRAIN_LR = 8, 2048, 30, 1e-3
+SCAN_TRAIN_B, SCAN_TRAIN_STEPS = 2, 5
+CHECK_B, CHECK_L = 2, 256  # phase 31's card-against-CPU batch
+TRAINER_TIMEOUT_S = 300
+# (b, hq, hkv, l, d): GQA at 512, D = 128 with a ragged L, tinyllama's
+# training shape; fp32 on the CUDA-core route
+FA_GRAD_SHAPES = [((2, 8, 2, 512, 64), torch.bfloat16), ((1, 4, 4, 300, 128), torch.bfloat16),
+                  ((8, 32, 4, 2048, 64), torch.bfloat16), ((2, 4, 2, 256, 64), torch.float32)]
+# a ragged fp32 case and zamba2-1.2b's / rwkv6-3b's training shapes (B 2 x L 2048)
+SSD_GRAD_SHAPES = [((2, 200, 4, 32, 16), torch.float32), ((2, 2048, 64, 64, 64), torch.bfloat16)]
+WKV_GRAD_SHAPES = [((2, 100, 2, 128, 128), torch.float32), ((2, 2048, 40, 64, 64), torch.bfloat16)]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2063,6 +2143,493 @@ def annotation_cost(env: ChargaxEnv, policy, net, gen) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# LM training (phases 30-35)
+# ---------------------------------------------------------------------------
+def kernel_grads_vs_plain(dev: torch.device) -> dict[str, float]:
+    """Phase 30: each kernel's ``autograd.Function`` (the kernel forward, the
+    plain version's backward) against autograd through the plain version on
+    the same inputs and cotangent: the output and every input's gradient at
+    phases 8/9/14's forward tolerances; each call launches its kernel
+    exactly once, the backward none.  Returns each kernel's largest abs
+    error (output and gradients)."""
+    gen = torch.Generator(device=dev).manual_seed(30)
+    fa_plain = functools.partial(mha_blocked, causal=True, block_k=fa_ops.BACKWARD_BLOCK_K)
+    cases = []
+    for shape, dtype in FA_GRAD_SHAPES:
+        b, hq, hkv, l, d = shape
+        qkv = [_randn((b, h, l, d), gen, dev, dtype) for h in (hq, hkv, hkv)]
+        cases.append(("flash_attention", shape, dtype, qkv, fa_ops.flash_attention, fa_plain, FA_TOL[dtype]))
+    for shape, dtype in SSD_GRAD_SHAPES:
+        cases.append(("mamba2_ssd", shape, dtype, list(ssd_inputs(shape, dtype, gen, dev)),
+                      ssd_ops.ssd, ssd_chunked, SSD_TOL[dtype]))
+    for shape, dtype in WKV_GRAD_SHAPES:
+        cases.append(("rwkv6_wkv", shape, dtype, list(wkv_inputs(shape, dtype, gen, dev)),
+                      wkv_ops.wkv, functools.partial(wkv_chunked, chunk=wkv_ops.CHUNK), WKV_TOL[dtype]))
+    counters = {"flash_attention": fa_ops.flash_attention, "mamba2_ssd": ssd_ops.ssd, "rwkv6_wkv": wkv_ops.wkv}
+    worst = dict.fromkeys(counters, 0.0)
+    for name, shape, dtype, inputs, fn, plain, tol in cases:
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        counter = counters[name]
+        before = counter.launches
+        out = fn(*leaves)
+        out = out[0] if isinstance(out, tuple) else out  # the final state is unused, as in training
+        check(counter.launches == before + 1, f"{name} {shape}: forward launched {counter.launches - before}")
+        g_out = torch.randn(out.shape, generator=gen, device=dev).to(out.dtype)
+        grads = torch.autograd.grad(out, leaves, g_out)
+        check(counter.launches == before + 1, f"{name} {shape}: the backward launched the kernel")
+        ref = [t.detach().requires_grad_() for t in inputs]
+        want_out = plain(*ref)
+        want_out = want_out[0] if isinstance(want_out, tuple) else want_out
+        want = torch.autograd.grad(want_out, ref, g_out)
+        torch.cuda.synchronize()
+        errs = {}
+        pairs = [("out", out, want_out)] + [(f"d{i}", g, w) for i, (g, w) in enumerate(zip(grads, want))]
+        for label, g, w in pairs:
+            g, w = g.detach().float(), w.detach().float()
+            check(bool(torch.isfinite(g).all()), f"{name} {shape} {label}: not finite")
+            errs[label] = float((g - w).abs().max())
+            check(torch.allclose(g, w, **tol), f"{name} grads vs plain {shape} {dtype} {label}: max abs err {errs[label]}")
+        worst[name] = max(worst[name], *errs.values())
+        print(f"{name} grads vs plain {shape} {str(dtype)[6:]}: " + " ".join(f"{k}={v:.3g}" for k, v in errs.items()))
+        del leaves, out, grads, ref, want_out, want
+    torch.cuda.empty_cache()
+    print("kernel grads vs plain: max abs err " + " ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    return worst
+
+
+# Loss and gradients of a full-width fp32 model cut to a few layers, card
+# against CPU: fp32 with TF32 off on both sides, so they differ in the order
+# of fp32 sums only, as phase 10's logits (1e-4 there); a gradient sums over
+# every token and passes back through every layer, so its norm is held to
+# ten times that.
+TRAIN_CARD_VS_CPU = dict(loss_rtol=1e-4, grad_rel=1e-3)
+
+
+def train_card_vs_cpu(dev: torch.device, arch: str, n_layers: int, expect: dict[str, int]) -> dict:
+    """Phase 31: one training step's loss and gradients, card against CPU,
+    the same weights (one ``init`` on the CPU, copied) and the same batch."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers, param_dtype="float32", compute_dtype="float32")
+    cpu_model = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(31))
+    card_model = build_model(cfg, device=dev)
+    card_model.load_state_dict(cpu_model.state_dict())
+    if cfg.family == "hybrid":
+        check(len(card_model.groups) == 1, f"{n_layers} layers give {card_model.groups}")
+    batch = SyntheticTokens(DataConfig(vocab=cfg.vocab, batch=CHECK_B, seq_len=CHECK_L, seed=31)).batch(0)
+
+    def value_and_grads(model):
+        loss, _ = model.loss(*(batch[k].to(model.device) for k in ("tokens", "labels")))
+        return loss.detach(), torch.autograd.grad(loss, list(model.parameters()))
+
+    t0 = time.perf_counter()
+    want_loss, want = value_and_grads(cpu_model)
+    cpu_s = time.perf_counter() - t0
+    reset_launch_counts()
+    loss, grads = value_and_grads(card_model)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts == {**dict.fromkeys(counts, 0), **expect}, f"{arch} card step launches {counts}, expected {expect}")
+    rel_loss = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+    check(math.isfinite(float(loss)) and rel_loss <= TRAIN_CARD_VS_CPU["loss_rtol"],
+          f"{arch} card loss {float(loss)} against cpu {float(want_loss)}")
+    worst, worst_name = 0.0, None
+    for (name, _), g, w in zip(cpu_model.named_parameters(), grads, want):
+        rel = float((g.cpu() - w).norm() / w.norm().clamp_min(1e-30))
+        check(bool(torch.isfinite(g).all()) and rel <= TRAIN_CARD_VS_CPU["grad_rel"],
+              f"{arch} card vs cpu gradient {name}: relative norm error {rel}")
+        if rel >= worst:
+            worst, worst_name = rel, name
+    print(
+        f"train card vs cpu ({arch}, full width, {n_layers} layers, fp32, B={CHECK_B} L={CHECK_L}): "
+        f"loss {float(loss):.6f} against {float(want_loss):.6f} (relative {rel_loss:.3g}, limit "
+        f"{TRAIN_CARD_VS_CPU['loss_rtol']}); worst gradient {worst_name} relative norm error {worst:.3g} "
+        f"(limit {TRAIN_CARD_VS_CPU['grad_rel']}); card launches {counts}; cpu step {cpu_s:.1f} s"
+    )
+    return {"loss_rel_err": rel_loss, "grad_rel_err": worst, "launches": counts}
+
+
+# phase 32: the trainer as a subprocess on the tinyllama smoke config
+TRAINER_ARGS = ["--arch", TINY, "--smoke", "--batch", "4", "--seq-len", "64", "--log-every", "1", "--ckpt-every", "1"]
+DETERMINISTIC = (
+    "import sys, torch\n"
+    "torch.use_deterministic_algorithms(True)\n"
+    "from repro_torch.launch import train\n"
+    "train.main(sys.argv[1:])\n"
+)
+
+
+def _trainers(device: str, runs: list[tuple[Path, list[str], int | None]]) -> list[tuple[int, str]]:
+    """Run the trainer CLI once per ``(checkpoint dir, arguments,
+    sigterm_after)``, all at once, each in a subprocess under deterministic
+    algorithms (and ``CUBLAS_WORKSPACE_CONFIG``, which cuBLAS needs for
+    them), set for those processes only.  A run whose ``sigterm_after`` is
+    not None gets SIGTERM once it has logged that many steps.  Returns each
+    run's (exit code, output)."""
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src"), "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+
+    def one(ckpt: Path, args: list[str], sigterm_after: int | None) -> tuple[int, str]:
+        cmd = [sys.executable, "-c", DETERMINISTIC, *TRAINER_ARGS, "--device", device, "--ckpt-dir", str(ckpt), *args]
+        proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        watchdog = threading.Timer(TRAINER_TIMEOUT_S, proc.kill)  # a hung trainer ends the read
+        watchdog.start()
+        lines = []
+        try:
+            for line in proc.stdout:
+                lines.append(line)
+                if sigterm_after is not None and sum(s.startswith("step ") for s in lines) == sigterm_after:
+                    proc.send_signal(signal.SIGTERM)
+            rc = proc.wait()
+        finally:
+            watchdog.cancel()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        check(rc != -signal.SIGKILL, f"trainer {args} ran past {TRAINER_TIMEOUT_S} s")
+        return rc, "".join(lines)
+
+    with ThreadPoolExecutor(len(runs)) as pool:
+        return [f.result() for f in [pool.submit(one, *run) for run in runs]]
+
+
+def _checkpoint(ckpt: Path, step: int) -> tuple[dict, dict[str, bytes]]:
+    """A checkpoint's extras and its leaves' bytes by key."""
+    path = ckpt / f"step_{step:010d}"
+    manifest = json.loads((path / "manifest.json").read_text())
+    return manifest["extras"], {k: (path / v["file"]).read_bytes() for k, v in manifest["leaves"].items()}
+
+
+def trainer_resume_and_preempt(device: str, root: Path) -> dict:
+    """Phase 32: a straight 6-step run against a 3-step run resumed to 6:
+    the losses of steps 3-5 (each checkpoint's extras) and every leaf of the
+    final checkpoint bit-identical; a run that gets SIGTERM after its 2nd
+    step exits 0 with a checkpoint.  The straight, 3-step and SIGTERM runs
+    go at once, then the resumed one.  ``device`` is ``cuda`` on the card
+    (``cpu`` in the CPU test of this phase)."""
+    straight, resumed, preempted = root / "straight", root / "resumed", root / "preempted"
+    t0 = time.perf_counter()
+    (rc_a, out_a), (rc_b, out_b), (rc_p, out_p) = _trainers(device, [
+        (straight, ["--steps", "6"], None), (resumed, ["--steps", "3"], None),
+        (preempted, ["--steps", "1000"], 2),
+    ])
+    check(rc_a == 0, f"straight run exited {rc_a}:\n{out_a}")
+    check(rc_b == 0, f"3-step run exited {rc_b}:\n{out_b}")
+    ((rc, out),) = _trainers(device, [(resumed, ["--steps", "6", "--resume"], None)])
+    check(rc == 0 and "[resume] from step 3" in out, f"resumed run exited {rc}:\n{out}")
+    for step in (4, 5, 6):
+        a, b = _checkpoint(straight, step), _checkpoint(resumed, step)
+        check(a[0] == b[0], f"step {step - 1}: straight {a[0]} against resumed {b[0]}")
+    check(a[1] == b[1], "final leaves differ: " + str([k for k in a[1] if a[1][k] != b[1].get(k)][:5]))
+    steps = sorted(int(p.name[5:]) for p in preempted.glob("step_*") if not p.name.endswith(".tmp"))
+    check(rc_p == 0 and "[preempt] SIGTERM received" in out_p and steps, f"SIGTERM run exited {rc_p}, {steps}:\n{out_p}")
+    losses = [_checkpoint(straight, s)[0]["loss"] for s in (4, 5, 6)]
+    print(
+        f"trainer resume and preemption ({device}, {TINY} smoke, deterministic algorithms): losses of "
+        f"steps 3-5 {losses} equal, {len(a[1])} final leaves bit-identical; SIGTERM run exit 0 with "
+        f"checkpoints at steps {steps}; {time.perf_counter() - t0:.1f} s"
+    )
+    return {"losses_steps_3_5": losses, "leaves": len(a[1]), "sigterm_checkpoints": steps}
+
+
+def train_full(dev: torch.device, arch: str, b: int, steps: int, expect: dict[str, int],
+               lr: float = TRAIN_LR, dtype: str = "bfloat16") -> tuple[dict, object, object, object, dict]:
+    """Phases 33 and 34: ``arch`` at full width and depth (bf16 parameters,
+    or ``dtype``'s; fp32 moments) from ``init`` seed 0, ``steps`` steps of
+    B x TRAIN_L synthetic tokens through ``make_train_step`` with CUDA
+    events around each and the host's time to issue it (``step_fn``'s
+    return, before the wait), every kernel count reset just before each step
+    and read just after (exactly ``expect`` a step, no other).  Returns
+    (summary, model, step, state, the last batch)."""
+    cfg = dataclasses.replace(get_config(arch), param_dtype=dtype, compute_dtype=dtype)
+    model = build_model(cfg, device=dev)
+    check(model.dtype == DTYPES[dtype], f"{arch} trains in {model.dtype}")
+    ts_cfg = TrainStepConfig(lr=lr, total_steps=steps)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(model, torch.Generator(device=dev).manual_seed(0), ts_cfg)
+    step_fn = make_train_step(model, ts_cfg)
+    data = SyntheticTokens(DataConfig(vocab=cfg.vocab, batch=b, seq_len=TRAIN_L))
+    losses, ms, host_ms = [], [], []
+    launches = dict.fromkeys(launch_counts(), 0)
+    for i in range(steps):
+        batch = {k: v.to(dev) for k, v in data.batch(i).items()}
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        reset_launch_counts()
+        start.record()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        host_ms.append((time.perf_counter() - t0) * 1000.0)
+        end.record()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        check(counts == {**dict.fromkeys(counts, 0), **expect}, f"{arch} step {i} launches {counts}, expected {expect}")
+        launches = {k: launches[k] + v for k, v in counts.items()}
+        losses.append(float(metrics["loss"]))
+        ms.append(start.elapsed_time(end))
+        check(math.isfinite(losses[-1]), f"{arch} step {i} loss {losses[-1]}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(p.numel() for p in model.parameters())
+    med = statistics.median(ms[1:]) if steps > 1 else ms[0]
+    tok_s = b * TRAIN_L / (med / 1000.0)
+    summary = {
+        "arch": arch, "dtype": dtype, "params": n_params, "batch": b, "seq_len": TRAIN_L, "steps": steps,
+        "lr": lr, "losses": losses, "step_ms": ms, "host_issue_ms": host_ms, "median_step_ms": med,
+        "tokens_per_s": tok_s,
+        "peak_memory_gib": peak_gib, "launches_per_step": expect, "launches": launches,
+    }
+    print(
+        f"train: {arch} ({n_params} params, {dtype}, fp32 moments) B={b} L={TRAIN_L}, {steps} steps: "
+        f"median step {med:.3f} ms (first {ms[0]:.3f}; steps {[round(t, 1) for t in ms]}, host issue "
+        f"{[round(t, 1) for t in host_ms]}), {tok_s:.0f} tokens/s, peak memory {peak_gib:.3f} GiB, "
+        f"launches a step {expect}; loss {losses[0]:.4f} -> {losses[-1]:.4f}"
+    )
+    return summary, model, step_fn, state, batch
+
+
+def loss_witness(dev: torch.device, arch: str, b: int) -> dict:
+    """Phase 34's witness for ``arch``'s loss at full width and depth, at the
+    point its first training step starts from (bf16 ``init`` seed 0) and on
+    the batches phase 34 trains on:
+
+    - lr 0: each batch's loss with the init weights, what the steps' losses
+      would be if no update moved anything;
+    - batch 0's bf16 gradient against the fp32 one at the same weights (the
+      bf16 weights upcast): relative norm error and cosine;
+    - the fp32 loss's slope along the fp32 gradient, by central differences
+      at two step lengths, over the gradient's norm (1 when the gradient is
+      the loss's derivative);
+    - the fp32 loss after Adam's first update ``-lr g / (|g| + eps)`` at the
+      schedule's lr of step 1 and of the last step, against its first-order
+      prediction ``-lr sum g^2 / (|g| + eps)``; then at step 1's lr applied
+      to one group of leaves at a time (``_leaf_group``)."""
+    cfg16 = get_config(arch)
+    cfg32 = dataclasses.replace(cfg16, param_dtype="float32", compute_dtype="float32")
+    data = SyntheticTokens(DataConfig(vocab=cfg16.vocab, batch=b, seq_len=TRAIN_L))
+    batches = [{k: v.to(dev) for k, v in data.batch(i).items()} for i in range(SCAN_TRAIN_STEPS)]
+    m16 = build_model(cfg16, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+
+    def loss_of(model, batch) -> float:
+        with torch.no_grad():
+            return float(model.loss(batch["tokens"], batch["labels"])[0])
+
+    def grads_of(model, batch) -> tuple[float, tuple]:
+        loss, _ = model.loss(batch["tokens"], batch["labels"])
+        return float(loss.detach()), torch.autograd.grad(loss, list(model.parameters()))
+
+    lr0 = [loss_of(m16, bt) for bt in batches]
+    loss16, g16 = grads_of(m16, batches[0])
+    m32 = build_model(cfg32, device=dev)
+    with torch.no_grad():
+        for p, q in zip(m32.parameters(), m16.parameters()):
+            p.copy_(q)
+    loss32, g32 = grads_of(m32, batches[0])
+    names = [n for n, _ in m32.named_parameters()]
+    norm32 = math.sqrt(sum(float(g.square().sum()) for g in g32))
+    norm16 = math.sqrt(sum(float(a.float().square().sum()) for a in g16))
+    diff = math.sqrt(sum(float((a.float() - g).square().sum()) for a, g in zip(g16, g32)))
+    cosine = sum(float((a.float() * g).sum()) for a, g in zip(g16, g32)) / (norm16 * norm32)
+    per_param = {n: float((a.float() - g).norm() / g.norm().clamp_min(1e-30)) for n, a, g in zip(names, g16, g32)}
+    worst = max(per_param, key=per_param.get)
+    del g16
+    gc.collect()
+
+    groups = {n: _leaf_group(n, q) for n, q in m16.named_parameters()}
+
+    def loss_at(delta, group: str | None = None) -> float:
+        """fp32 loss of batch 0 at the init weights plus ``delta(g)`` on the
+        leaves of ``group`` (every leaf when None)."""
+        with torch.no_grad():
+            for n, p, q, g in zip(names, m32.parameters(), m16.parameters(), g32):
+                p.copy_(q)
+                if group in (None, groups[n]):
+                    p.add_(delta(g))
+        return loss_of(m32, batches[0])
+
+    def adam_update(lr: float):
+        return lambda g: -lr * g / (g.abs() + 1e-8)
+
+    slopes = {}
+    for c in (1.0, 0.1):  # loss changes of about c
+        t = c / norm32
+        up, down = loss_at(lambda g: g * (t / norm32)), loss_at(lambda g: g * (-t / norm32))
+        slopes[c] = (up - down) / (2 * t) / norm32
+    lr_fn = cosine_warmup_schedule(TRAIN_LR, TrainStepConfig().warmup_steps, SCAN_TRAIN_STEPS)
+    adam = {}
+    for step in (1, SCAN_TRAIN_STEPS):
+        lr = lr_fn(step)
+        predicted = -lr * sum(float((g.square() / (g.abs() + 1e-8)).sum()) for g in g32)
+        adam[step] = {"lr": lr, "predicted": predicted, "measured": loss_at(adam_update(lr)) - loss32}
+    by_group = {}
+    for group in sorted(set(groups.values())):
+        lr = lr_fn(1)
+        predicted = -lr * sum(
+            float((g.square() / (g.abs() + 1e-8)).sum()) for n, g in zip(names, g32) if groups[n] == group
+        )
+        by_group[group] = {"predicted": predicted, "measured": loss_at(adam_update(lr), group) - loss32}
+    out = {
+        "lr0_losses": lr0, "loss_bf16": loss16, "loss_fp32": loss32,
+        "grad_norm_fp32": norm32, "grad_norm_bf16": norm16, "bf16_grad_rel_err": diff / norm32,
+        "bf16_grad_cosine": cosine, "worst_param": worst, "worst_param_rel_err": per_param[worst],
+        "fd_slope_over_norm": slopes, "adam_first_update": adam, "adam_first_update_by_group": by_group,
+    }
+    print(
+        f"loss witness ({arch}, init seed 0, B={b} L={TRAIN_L}): lr-0 losses {[round(x, 4) for x in lr0]}; "
+        f"batch 0 loss bf16 {loss16:.4f} fp32 {loss32:.4f}; gradient norm fp32 {norm32:.4f} bf16 {norm16:.4f}, "
+        f"bf16 against fp32 relative error {diff / norm32:.4g}, cosine {cosine:.6f}, worst {worst} "
+        f"{per_param[worst]:.4g}; fp32 slope along the gradient over its norm "
+        + ", ".join(f"{v:.6f} (change {c})" for c, v in slopes.items())
+        + "; Adam's first update: "
+        + ", ".join(f"lr {v['lr']:.3g} predicted {v['predicted']:.4f} measured {v['measured']:.4f}" for v in adam.values())
+        + "; by group at step 1's lr: "
+        + ", ".join(f"{k} predicted {v['predicted']:.4f} measured {v['measured']:.4f}" for k, v in by_group.items())
+    )
+    return out
+
+
+def _leaf_group(name: str, leaf: torch.Tensor) -> str:
+    """The embedding, the unembedding, the fp32 leaves of a bf16 model (RWKV6's
+    mixes, decay LoRA and bonus), the other vectors (norms), the matrices."""
+    if name in ("embed", "unembed"):
+        return name
+    if leaf.dtype == torch.float32:
+        return "fp32_leaves"
+    return "vectors" if leaf.dim() == 1 else "matrices"
+
+
+def checkpoint_cost(state) -> dict:
+    """One blocking checkpoint of a full training state into a temporary
+    directory, deleted afterwards: its bytes on disk and the save's seconds."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        CheckpointManager(tmp, keep=1).save(1, state, extras={"step": 1}, blocking=True)
+        save_s = time.perf_counter() - t0
+        size = sum(p.stat().st_size for p in Path(tmp).rglob("*") if p.is_file())
+    print(f"checkpoint: {size} bytes in {save_s:.2f} s ({size / save_s / 1e9:.3f} GB/s), directory removed")
+    return {"bytes": size, "save_s": save_s}
+
+
+def profile_train_step(step_fn, state, batch, step_ms: float) -> tuple[dict, object]:
+    """Phase 35: one training step under ``torch.profiler``: device busy ms,
+    idle share of an unprofiled step, kernels a step, top kernels; the share
+    of the device time taken by the flash forward kernel and by the kernels
+    launched inside the flash Function's backward (the plain attention
+    backward), by the trace's correlation ids.  Returns (summary, state)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(_device_time_us(e) for e in kernels) / 1000.0
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.key[:80]] = by_name.get(e.key[:80], 0.0) + _device_time_us(e) / 1000.0
+    top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:12]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "step.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e["dur"], e["tid"]) for e in events
+             if e.get("cat") == "cpu_op" and e.get("name") == "autograd::engine::evaluate_function: _FlashAttentionBackward"]
+    launches = {(e.get("args") or {}).get("correlation"): e for e in events
+                if e.get("cat") not in _DEVICE_CATS and e.get("ph") == "X" and "correlation" in (e.get("args") or {})}
+    fwd_us = bwd_us = 0.0
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        if "flash_attention" in e["name"]:
+            fwd_us += e["dur"]
+        launch = launches.get((e.get("args") or {}).get("correlation"))
+        if launch is not None and any(s <= launch["ts"] <= t and tid == launch["tid"] for s, t, tid in spans):
+            bwd_us += e["dur"]
+    summary = {
+        "device_busy_ms": busy_ms or None,
+        "unprofiled_step_ms": step_ms,
+        "device_idle_share": 1.0 - busy_ms / step_ms if busy_ms else None,
+        "device_kernels": sum(e.count for e in kernels),
+        "top_kernels_ms": dict(top),
+        "flash_forward_ms": fwd_us / 1000.0,
+        "flash_forward_share": fwd_us / 1000.0 / busy_ms if busy_ms else None,
+        "attention_backward_spans": len(spans),
+        "attention_backward_ms": bwd_us / 1000.0 if spans else None,
+        "attention_backward_share": bwd_us / 1000.0 / busy_ms if spans and busy_ms else None,
+    }
+    if not busy_ms:
+        print("profile: device time not measured (the profiler recorded no CUDA kernel time)")
+    return summary, state
+
+
+def profile_train_scan(step_fn, state, batch, step_ms: float) -> dict:
+    """Phase 34: one more zamba2-1.2b step under ``torch.profiler``, the
+    device's activity alone (~86k launches): busy ms, idle share of the
+    median unprofiled step, kernels a step, top kernels."""
+    def one():
+        step_fn(state, batch)
+
+    prof = profile_device(one, 1, step_ms, cpu_ops=False)
+    print(json.dumps({"train_profile": {"arch": ZAMBA, **prof}}))
+    return prof
+
+
+# phase 34's gates on rwkv6-3b's witness (measured on an H100: lr-0 losses
+# within 0.9 % of each other, cosine 0.99991, relative error 0.0138, slopes
+# 0.9981 and 0.9924, the fp32 steps within 3.7 % of the bf16 ones)
+WITNESS_LIMITS = dict(lr0_spread=0.05, grad_cosine=0.999, grad_rel=0.05, slope=0.02, fp32_track=0.10)
+
+
+def check_witness(witness: dict, losses16: list[float], losses32: list[float]) -> None:
+    """Fails unless the init weights give the 5 batches about the same loss
+    (so a rise is the updates'), batch 0's bf16 gradient agrees with the fp32
+    one, the fp32 gradient is the loss's slope at both step lengths, and the
+    fp32 steps' losses follow the bf16 steps'."""
+    lim = WITNESS_LIMITS
+    lr0 = witness["lr0_losses"]
+    check(max(abs(x - lr0[0]) for x in lr0) <= lim["lr0_spread"] * lr0[0], f"lr-0 losses {lr0}")
+    check(witness["bf16_grad_cosine"] >= lim["grad_cosine"] and witness["bf16_grad_rel_err"] <= lim["grad_rel"],
+          f"bf16 gradient against fp32: cosine {witness['bf16_grad_cosine']}, error {witness['bf16_grad_rel_err']}")
+    check(all(abs(v - 1.0) <= lim["slope"] for v in witness["fd_slope_over_norm"].values()),
+          f"the fp32 loss's slope over the gradient's norm {witness['fd_slope_over_norm']}")
+    check(all(abs(a - b) <= lim["fp32_track"] * abs(b) for a, b in zip(losses32, losses16)),
+          f"fp32 losses {losses32} against bf16 {losses16}")
+
+
+def attention_fwd_bwd_times(dev: torch.device) -> dict:
+    """Phase 35's yardstick for a later backward kernel: the Function's
+    forward + backward (the kernel, then autograd through ``mha_blocked``)
+    against ``F.scaled_dot_product_attention``'s at tinyllama's training
+    shape (B 8, Hq 32, Hkv 4, L 2048, D 64, bf16, causal), by CUDA events."""
+    cfg = get_config(TINY)
+    b, hq, hkv, l, d = TRAIN_B, cfg.n_heads, cfg.n_kv_heads, TRAIN_L, cfg.hd
+    gen = torch.Generator(device=dev).manual_seed(35)
+    bf16 = torch.bfloat16
+    args = [tuple(_randn((b, h, l, d), gen, dev, bf16).requires_grad_() for h in (hq, hkv, hkv)) for _ in range(2)]
+    g = _randn((b, hq, l, d), gen, dev, bf16)
+
+    def ours(q, k, v):
+        torch.autograd.grad(fa_ops.flash_attention(q, k, v, causal=True), (q, k, v), g)
+
+    def sdpa(q, k, v):
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+        torch.autograd.grad(out, (q, k, v), g)
+
+    def fwd(q, k, v):
+        with torch.no_grad():
+            fa_ops.flash_attention(q, k, v, causal=True)
+
+    out = {
+        "function_fwd_bwd_ms": time_ms(ours, args, warmup=2, n=5),
+        "sdpa_fwd_bwd_ms": time_ms(sdpa, args, warmup=3, n=10),
+        "kernel_fwd_ms": time_ms(fwd, args, warmup=3, n=10),
+    }
+    out["function_over_sdpa"] = out["function_fwd_bwd_ms"] / out["sdpa_fwd_bwd_ms"]
+    print(
+        f"attention fwd+bwd at (B={b}, Hq={hq}, Hkv={hkv}, L={l}, D={d}, bf16, causal): the Function "
+        f"{out['function_fwd_bwd_ms']:.3f} ms (its kernel forward {out['kernel_fwd_ms']:.3f}), SDPA "
+        f"{out['sdpa_fwd_bwd_ms']:.3f} ms: {out['function_over_sdpa']:.2f} x SDPA"
+    )
+    return out
+
+
 def check_kpis(result: dict, label: str) -> None:
     check(all(math.isfinite(v) for v in result.values()), f"{label}: non-finite KPIs {result}")
     check(result["energy_delivered_kwh"] > 0, f"{label}: no energy delivered")
@@ -2270,6 +2837,81 @@ def main() -> int:
     annot = annotation_cost(env, policy, net, gen)
     phase_s[29] = time.perf_counter() - lap
     print("scenario, fleet and telemetry phases, host s: " + " ".join(f"{k}={v:.1f}" for k, v in phase_s.items()))
+    del env, policy, net
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- 30. kernel gradients on the card ----------------------------------------------------
+    lap = time.perf_counter()
+    grad_errs = kernel_grads_vs_plain(dev)
+    phase_s[30] = time.perf_counter() - lap
+
+    # --- 31. one training step, card against CPU ---------------------------------------------
+    lap = time.perf_counter()
+    step_checks = {
+        TINY: train_card_vs_cpu(dev, TINY, 2, {"flash_attention": 4}),
+        ZAMBA: train_card_vs_cpu(dev, ZAMBA, 6, {"flash_attention": 1, "mamba2_ssd": 12}),
+        RWKV: train_card_vs_cpu(dev, RWKV, 2, {"rwkv6_wkv": 4}),
+    }
+    phase_s[31] = time.perf_counter() - lap
+
+    # --- 32. resume and preemption on the card -------------------------------------------------
+    lap = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        resume = trainer_resume_and_preempt("cuda", Path(tmp))
+    phase_s[32] = time.perf_counter() - lap
+
+    # --- 33. tinyllama-1.1b training at full width and depth ------------------------------------
+    # every layer's flash forward runs twice: in the forward and in its remat recompute
+    lap = time.perf_counter()
+    tiny, model, step_fn, state, batch = train_full(
+        dev, TINY, TRAIN_B, TRAIN_STEPS, {"flash_attention": 2 * get_config(TINY).n_layers}
+    )
+    first, last = statistics.mean(tiny["losses"][:5]), statistics.mean(tiny["losses"][-5:])
+    check(last < first, f"{TINY} loss did not fall: first 5 mean {first}, last 5 mean {last}")
+    tiny["checkpoint"] = checkpoint_cost(state)
+    phase_s[33] = time.perf_counter() - lap
+
+    # --- 35. profile of one tinyllama-1.1b training step (while its model is held) --------------
+    lap = time.perf_counter()
+    tiny["profile"], state = profile_train_step(step_fn, state, batch, tiny["median_step_ms"])
+    print(json.dumps({"train_profile": {"arch": TINY, **tiny["profile"]}}))
+    del model, step_fn, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    tiny["attention_fwd_bwd"] = attention_fwd_bwd_times(dev)
+    phase_s[35] = time.perf_counter() - lap
+
+    # --- 34. zamba2-1.2b and rwkv6-3b training at full width and depth ---------------------------
+    # the Mamba2 and RWKV6 layers are remat'd (their kernels run twice), zamba2's shared block not
+    lap = time.perf_counter()
+    scan_train = {}
+    rwkv_expect = {"rwkv6_wkv": 2 * get_config(RWKV).n_layers}
+    for arch, expect in (
+        (ZAMBA, {"mamba2_ssd": 2 * get_config(ZAMBA).n_layers, "flash_attention": 7}),
+        (RWKV, rwkv_expect),
+    ):
+        scan_train[arch], model, step_fn, state, batch = train_full(
+            dev, arch, SCAN_TRAIN_B, SCAN_TRAIN_STEPS, expect
+        )
+        if arch == ZAMBA:
+            losses = scan_train[arch]["losses"]
+            check(losses[-1] < losses[0], f"{arch} loss did not fall: {losses}")
+            scan_train[arch]["profile"] = profile_train_scan(step_fn, state, batch, scan_train[arch]["median_step_ms"])
+        del model, step_fn, state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    # rwkv6-3b's loss rises over its 5 steps: the witness, then the same steps in fp32
+    witness = loss_witness(dev, RWKV, SCAN_TRAIN_B)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp32_run = train_full(dev, RWKV, SCAN_TRAIN_B, SCAN_TRAIN_STEPS, rwkv_expect, dtype="float32")[0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    scan_train[RWKV].update(witness=witness, fp32=fp32_run)
+    check_witness(witness, scan_train[RWKV]["losses"], fp32_run["losses"])
+    phase_s[34] = time.perf_counter() - lap
+    print("lm training phases, host s: " + " ".join(f"{k}={phase_s[k]:.1f}" for k in range(30, 36)))
 
     metrics = {
         "env_steps_per_s": env_steps_per_s,
@@ -2290,7 +2932,8 @@ def main() -> int:
         "coupled_fleets": coupled,
         "telemetry": telem,
         "annotations": annot,
-        "scenario_fleet_telemetry_phases_s": phase_s,
+        "lm_train": {TINY: tiny, **scan_train, "card_vs_cpu": step_checks, "resume": resume},
+        "phases_s": phase_s,
     }
     print(json.dumps({"metrics": metrics}))
     kernels = [
@@ -2327,17 +2970,28 @@ def main() -> int:
             "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
-            "launches": zamba_launches["flash_attention"],
-            "max_abs_err": fa_err,
+            "launches": zamba_launches["flash_attention"] + tiny["launches"]["flash_attention"]
+            + scan_train[ZAMBA]["launches"]["flash_attention"],
+            "launches_by_path": {
+                "prefill_zamba2": zamba_launches["flash_attention"],
+                "train_tinyllama": tiny["launches"]["flash_attention"],
+                "train_zamba2": scan_train[ZAMBA]["launches"]["flash_attention"],
+            },
+            "max_abs_err": max(fa_err, grad_errs["flash_attention"]),
             **lm_times["flash_attention"],
+            "fwd_bwd": tiny["attention_fwd_bwd"],
         },
         {
             "name": "mamba2_ssd",
             "route": "cuda",
             "source": "src/repro_torch/kernels/mamba2_ssd/csrc/ssd.cu",
             "replaces": "src/repro/kernels/mamba2_ssd/kernel.py:24",
-            "launches": zamba_launches["mamba2_ssd"],
-            "max_abs_err": ssd_err,
+            "launches": zamba_launches["mamba2_ssd"] + scan_train[ZAMBA]["launches"]["mamba2_ssd"],
+            "launches_by_path": {
+                "prefill_zamba2": zamba_launches["mamba2_ssd"],
+                "train_zamba2": scan_train[ZAMBA]["launches"]["mamba2_ssd"],
+            },
+            "max_abs_err": max(ssd_err, grad_errs["mamba2_ssd"]),
             **lm_times["mamba2_ssd"],
         },
         {
@@ -2345,8 +2999,14 @@ def main() -> int:
             "route": "cuda",
             "source": "src/repro_torch/kernels/rwkv6_wkv/csrc/wkv.cu",
             "replaces": "src/repro/kernels/rwkv6_wkv/kernel.py:22",
-            "launches": rwkv_launches["rwkv6_wkv"],
-            "max_abs_err": wkv_err,
+            "launches": rwkv_launches["rwkv6_wkv"] + scan_train[RWKV]["launches"]["rwkv6_wkv"]
+            + scan_train[RWKV]["fp32"]["launches"]["rwkv6_wkv"],
+            "launches_by_path": {
+                "prefill_rwkv6": rwkv_launches["rwkv6_wkv"],
+                "train_rwkv6": scan_train[RWKV]["launches"]["rwkv6_wkv"],
+                "train_rwkv6_fp32": scan_train[RWKV]["fp32"]["launches"]["rwkv6_wkv"],
+            },
+            "max_abs_err": max(wkv_err, grad_errs["rwkv6_wkv"]),
             **wkv_times,
         },
     ]

@@ -1,0 +1,40 @@
+"""qwen3-4b [dense]: qk-norm, GQA (hf:Qwen/Qwen3-4B family).
+
+36L, d_model=2560, 32H (GQA kv=8), d_ff=9728, vocab=151936.
+"""
+from repro_torch.models.config import ModelConfig
+
+
+def full_config() -> ModelConfig:
+    return ModelConfig(
+        name="qwen3-4b",
+        family="dense",
+        n_layers=36,
+        d_model=2560,
+        n_heads=32,
+        n_kv_heads=8,
+        head_dim=128,
+        d_ff=9728,
+        vocab=151936,
+        qk_norm=True,
+        rope_theta=1_000_000.0,
+        act="swiglu",
+        tied_embeddings=True,
+    )
+
+
+def smoke_config() -> ModelConfig:
+    return ModelConfig(
+        name="qwen3-4b-smoke",
+        family="dense",
+        n_layers=2,
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=2,
+        head_dim=16,
+        d_ff=128,
+        vocab=256,
+        qk_norm=True,
+        param_dtype="float32",
+        compute_dtype="float32",
+    )

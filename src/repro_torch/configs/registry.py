@@ -10,7 +10,7 @@ import importlib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import CausalLM
 
-ARCH_IDS = ["zamba2-1.2b", "rwkv6-3b"]
+ARCH_IDS = ["zamba2-1.2b", "qwen3-4b", "chatglm3-6b", "tinyllama-1.1b", "chameleon-34b", "rwkv6-3b"]
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "p") for a in ARCH_IDS}
 

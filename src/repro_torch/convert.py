@@ -7,7 +7,7 @@ module imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping
+from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
@@ -15,6 +15,7 @@ import torch
 from repro_torch.city.params import CityParams
 from repro_torch.core import fleet
 from repro_torch.core.state import EnvParams, EnvState, RewardWeights
+from repro_torch.distributed.train_step import TrainState
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import CausalLM
 from repro_torch.optim.adamw import AdamWState
@@ -63,14 +64,19 @@ def actor_critic_from_numpy(
 
 
 def adamw_state_from_numpy(
-    state: Mapping[str, Any], *, device: torch.device | str | None = None
+    state: Mapping[str, Any],
+    *,
+    device: torch.device | str | None = None,
+    leaves: Callable[[Mapping[str, Any]], dict[str, torch.Tensor]] = _actor_critic_leaves,
 ) -> AdamWState:
-    """A JAX ``AdamWState`` over actor-critic params, as ``{"step", "mu",
-    "nu"}`` with numpy leaves, -> the port's state by ActorCritic names."""
+    """A JAX ``AdamWState``, as ``{"step", "mu", "nu"}`` with numpy leaves,
+    -> the port's state.  ``leaves`` maps a moment tree to the port's
+    parameter names: ActorCritic's by default, an LM's with
+    :func:`lm_leaves_from_numpy`."""
     dev = resolve_device(device)
 
     def moments(tree) -> dict[str, torch.Tensor]:
-        return {k: v.to(dev) for k, v in _actor_critic_leaves(tree).items()}
+        return {k: v.to(dev) for k, v in leaves(tree).items()}
 
     return AdamWState(step=int(state["step"]), mu=moments(state["mu"]), nu=moments(state["nu"]))
 
@@ -177,39 +183,67 @@ def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def lm_params_from_numpy(
-    tree: Mapping[str, Any], cfg: ModelConfig, *, device: torch.device | str | None = None
-) -> CausalLM:
-    """The JAX ``CausalLM.init`` tree (leaves as numpy arrays) -> the port's model.
+def lm_leaves_from_numpy(tree: Mapping[str, Any], model: CausalLM) -> dict[str, torch.Tensor]:
+    """A tree shaped as the JAX ``CausalLM.init`` tree (the params, or an
+    AdamW moment or compression residual tree over them; leaves as numpy
+    arrays) -> ``{name: tensor}`` by ``model``'s parameter names, on the CPU.
 
     Names match path for path; the JAX tree's leading layer axis of
-    ``layers`` is unstacked (``layers.<i>.…`` takes row ``i``).  Weights are
-    ``(in, out)`` on both sides.  Every leaf of ``tree`` must be used, with
-    the port's shape and dtype.
+    ``layers`` is unstacked (``layers.<i>.…`` takes row ``i``).  Every leaf
+    of ``tree`` must be used, with the port's shape.
     """
-    model = CausalLM(cfg, device=device)
-    used = set()
-    with torch.no_grad():
-        for name, param in model.named_parameters():
-            keys = name.split(".")
-            index = None
-            if keys[0] == "layers":
-                index, keys = int(keys[1]), [keys[0]] + keys[2:]
-            leaf = tree
-            for k in keys:
-                leaf = leaf[k]
-            value = _tensor(leaf if index is None else np.asarray(leaf)[index])
-            if value.shape != param.shape or value.dtype != param.dtype:
-                raise ValueError(
-                    f"{name}: JAX leaf {tuple(value.shape)} {value.dtype}, "
-                    f"port {tuple(param.shape)} {param.dtype}"
-                )
-            param.copy_(value)
-            used.add(tuple(keys))
+    out, used = {}, set()
+    for name, param in model.named_parameters():
+        keys = name.split(".")
+        index = None
+        if keys[0] == "layers":
+            index, keys = int(keys[1]), [keys[0]] + keys[2:]
+        leaf = tree
+        for k in keys:
+            leaf = leaf[k]
+        value = _tensor(leaf if index is None else np.asarray(leaf)[index])
+        if value.shape != param.shape:
+            raise ValueError(f"{name}: JAX leaf {tuple(value.shape)}, port {tuple(param.shape)}")
+        out[name] = value
+        used.add(tuple(keys))
     unused = sorted(".".join(path) for path in _leaf_paths(tree) if path not in used)
     if unused:
         raise ValueError(f"the port has no parameter for the JAX leaves {unused}")
+    return out
+
+
+def lm_params_from_numpy(
+    tree: Mapping[str, Any], cfg: ModelConfig, *, device: torch.device | str | None = None
+) -> CausalLM:
+    """The JAX ``CausalLM.init`` tree (leaves as numpy arrays) -> the port's
+    model, by :func:`lm_leaves_from_numpy`.  Weights are ``(in, out)`` on
+    both sides; every leaf must have the port's dtype too."""
+    model = CausalLM(cfg, device=device)
+    with torch.no_grad():
+        for name, value in lm_leaves_from_numpy(tree, model).items():
+            param = model.get_parameter(name)
+            if value.dtype != param.dtype:
+                raise ValueError(f"{name}: JAX leaf {value.dtype}, port {param.dtype}")
+            param.copy_(value)
     return model
+
+
+def train_state_from_numpy(
+    state: Mapping[str, Any], cfg: ModelConfig, *, device: torch.device | str | None = None
+) -> tuple[CausalLM, TrainState]:
+    """A JAX ``TrainState`` as ``{"params", "opt": {"step", "mu", "nu"},
+    "error_feedback"}`` with numpy leaves -> the port's model holding those
+    parameters and its ``TrainState`` (moments fp32, residuals fp32 or an
+    empty dict), so a run begun in JAX goes on in the port."""
+    model = lm_params_from_numpy(state["params"], cfg, device=device)
+    dev = model.device
+
+    def lm(tree) -> dict[str, torch.Tensor]:
+        return lm_leaves_from_numpy(tree, model)
+
+    opt = adamw_state_from_numpy(state["opt"], device=dev, leaves=lm)
+    ef = {k: v.to(dev) for k, v in lm(state["error_feedback"]).items()} if state["error_feedback"] else {}
+    return model, TrainState(params=dict(model.named_parameters()), opt=opt, error_feedback=ef)
 
 
 def _leaf_paths(tree, prefix: tuple[str, ...] = ()) -> list[tuple[str, ...]]:

@@ -1,1 +1,1 @@
-"""LM serving steps (prefill and one-token decode)."""
+"""LM training and serving steps, checkpoints and gradient compression."""

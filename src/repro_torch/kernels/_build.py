@@ -1,4 +1,5 @@
-"""nvcc builder and input checks shared by the port's CUDA kernels.
+"""nvcc builder, input checks and the recomputed backward shared by the
+port's CUDA kernels.
 
 Each kernel is one ``.cu`` file with a plain C interface.  It is compiled for
 ``sm_90a`` into ``build/<name>/`` at the repository root, at first use, and
@@ -12,6 +13,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Callable
 
 import torch
 
@@ -74,3 +76,20 @@ def check_tensor(name: str, x: torch.Tensor, device: torch.device, dtype, shape)
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+
+
+def recompute_backward(
+    plain: Callable, saved, grad_outputs, needs_input_grad
+) -> tuple[torch.Tensor | None, ...]:
+    """The backward of a kernel's ``autograd.Function``: autograd through
+    ``plain`` (the kernel's plain version) on the saved inputs, against the
+    cotangents that are present; a ``None`` one, such as an unused final
+    state's, adds nothing.  Returns one gradient per saved input, ``None``
+    where ``needs_input_grad`` says none is wanted."""
+    inputs = [t.detach().requires_grad_() for t in saved]
+    with torch.enable_grad():
+        outs = plain(*inputs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, grad_outputs) if g is not None]
+        grads = torch.autograd.grad([o for o, _ in pairs], inputs, [g for _, g in pairs])
+    return tuple(g if need else None for g, need in zip(grads, needs_input_grad))

@@ -11,10 +11,13 @@ launches it; a CPU tensor runs the plain version
 (:func:`repro_torch.kernels.flash_attention.ref.mha_blocked`).  There is no
 fallback between the two: a CUDA tensor launches the kernel or raises.
 
-The kernel has no backward: the serving path runs under
-``torch.inference_mode()``, and a CUDA input that requires grad raises.  The
-``autograd.Function`` whose backward recomputes through ``mha_blocked`` (as
-the JAX ``_bwd`` does) comes with LM training.
+Gradients flow through an ``autograd.Function`` (the JAX ``custom_vjp``): its
+forward launches the kernel (or runs the plain version on the CPU) and saves
+q, k, v; its backward recomputes through ``mha_blocked`` under autograd and
+returns ``torch.autograd.grad``, as the JAX ``_bwd`` recomputes through
+``mha_blocked_jnp``.  The kernel has no backward of its own, so the raw
+launcher refuses inputs that require grad while grad mode is on: outside the
+Function its output would drop the gradient.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import build, check_tensor
+from repro_torch.kernels._build import build, check_tensor, recompute_backward
 from repro_torch.kernels.flash_attention.ref import mha_blocked
 
 Tensor = torch.Tensor
@@ -33,6 +36,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's template instances
 DTYPES = (torch.float32, torch.bfloat16)
 CPU_BLOCK_K = 128  # kv block of the plain version (the JAX wrapper's block_k)
+BACKWARD_BLOCK_K = 128  # kv block of the recomputed backward, the JAX ``_bwd``'s
 
 
 def build_kernel() -> tuple[Path, str]:
@@ -90,7 +94,8 @@ def _launch(
         raise ValueError("bf16 q, k and v must start on 16-byte boundaries (TMA copies)")
     if any(t.requires_grad for t in (q, k, v)) and torch.is_grad_enabled():
         raise RuntimeError(
-            "flash_attention has no backward kernel yet; run under torch.inference_mode()"
+            "the flash_attention kernel has no backward kernel; call flash_attention(), whose "
+            "autograd.Function recomputes the backward through mha_blocked"
         )
 
     out = torch.empty_like(q)
@@ -110,6 +115,24 @@ def _launch(
     return out
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the kernel on CUDA tensors, ``mha_blocked`` on CPU tensors.
+    Backward: autograd through ``mha_blocked`` on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, opts):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = opts
+        if q.device.type == "cpu":
+            return mha_blocked(q, k, v, **opts, block_k=CPU_BLOCK_K)
+        return _launch(q, k, v, **opts)
+
+    @staticmethod
+    def backward(ctx, g):
+        plain = functools.partial(mha_blocked, **ctx.opts, block_k=BACKWARD_BLOCK_K)
+        return (*recompute_backward(plain, ctx.saved_tensors, (g,), ctx.needs_input_grad), None)
+
+
 def flash_attention(
     q: Tensor,  # (B, Hq, Lq, D)
     k: Tensor,  # (B, Hkv, Lk, D)
@@ -125,21 +148,16 @@ def flash_attention(
     the kv axis (``lk - lq``).  Returns ``(B, Hq, Lq, D)`` in q's dtype.
 
     On CUDA tensors this launches the kernel (``flash_attention.launches``
-    rises by one); on CPU tensors it runs :func:`ref.mha_blocked`.
+    rises by one); on CPU tensors it runs :func:`ref.mha_blocked`.  Both go
+    through the ``autograd.Function``, whose backward is the plain version's.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
     off = k.shape[2] - q.shape[2] if q_offset is None else q_offset
-    if q.device.type == "cpu":
-        return mha_blocked(
-            q, k, v, causal=causal, window=window, softcap=softcap, scale=scale,
-            q_offset=off, block_k=CPU_BLOCK_K,
-        )
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device.type}")
-    return _launch(
-        q, k, v, causal=causal, window=window, softcap=softcap, scale=scale, q_offset=off
-    )
+    opts = dict(causal=causal, window=window, softcap=softcap, scale=scale, q_offset=off)
+    return _FlashAttention.apply(q, k, v, opts)
 
 
 flash_attention.launches = 0

@@ -9,8 +9,14 @@ a CPU tensor runs the plain version
 (:func:`repro_torch.kernels.mamba2_ssd.ref.ssd_chunked`).  There is no
 fallback between the two: a CUDA tensor launches the kernel or raises.
 
-The kernel has no backward: the serving path runs under
-``torch.inference_mode()``, and a CUDA input that requires grad raises.
+Gradients flow through an ``autograd.Function`` (the JAX ``custom_vjp``): its
+forward launches the kernel (or runs the plain version on the CPU) and saves
+the inputs; its backward recomputes through ``ssd_chunked`` under autograd
+and returns ``torch.autograd.grad``, as the JAX ``_bwd`` recomputes through
+``ssd_chunked_jnp``.  Training drops the final state, so its cotangent may be
+absent.  The kernel has no backward of its own, so the raw launcher refuses
+inputs that require grad while grad mode is on: outside the Function its
+outputs would drop the gradient.
 """
 from __future__ import annotations
 
@@ -20,7 +26,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import build, check_tensor
+from repro_torch.kernels._build import build, check_tensor, recompute_backward
 from repro_torch.kernels.mamba2_ssd.ref import ssd_chunked, ssd_decode_step
 
 Tensor = torch.Tensor
@@ -89,7 +95,10 @@ def _launch(
     check_tensor("b_mat", b_mat, dev, x.dtype, (bsz, l, n))
     check_tensor("c_mat", c_mat, dev, x.dtype, (bsz, l, n))
     if any(t.requires_grad for t in (x, dt, a, b_mat, c_mat)) and torch.is_grad_enabled():
-        raise RuntimeError("ssd has no backward kernel yet; run under torch.inference_mode()")
+        raise RuntimeError(
+            "the ssd kernel has no backward kernel; call ssd(), whose autograd.Function "
+            "recomputes the backward through ssd_chunked"
+        )
 
     y = torch.empty_like(x)
     state = torch.empty((bsz, h, n, p), dtype=torch.float32, device=dev)
@@ -113,6 +122,23 @@ def _launch(
     return y, state
 
 
+class _SSD(torch.autograd.Function):
+    """Forward: the kernel on CUDA tensors, ``ssd_chunked`` on CPU tensors.
+    Backward: autograd through ``ssd_chunked`` on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b_mat, c_mat):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, a, b_mat, c_mat)
+        if x.device.type == "cpu":
+            return ssd_chunked(x, dt, a, b_mat, c_mat)
+        return _launch(x, dt, a, b_mat, c_mat)
+
+    @staticmethod
+    def backward(ctx, gy, gs):
+        return recompute_backward(ssd_chunked, ctx.saved_tensors, (gy, gs), ctx.needs_input_grad)
+
+
 def ssd(
     x: Tensor,  # (B, L, H, P)
     dt: Tensor,  # (B, L, H), positive, fp32
@@ -127,12 +153,13 @@ def ssd(
     it walks chunks of ``CHUNK`` rows); on CPU tensors it runs
     :func:`ref.ssd_chunked` at its default chunk.  The chunk-dual form is
     exact for any chunk, so the two differ only in the order of fp32 sums.
+    Both go through the ``autograd.Function``, whose backward is
+    ``ssd_chunked``'s; a ragged L needs no padding on either side, so the
+    gradient reaches the inputs as they are.
     """
-    if x.device.type == "cpu":
-        return ssd_chunked(x, dt, a, b_mat, c_mat)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ssd runs on cuda or cpu tensors, not {x.device.type}")
-    return _launch(x, dt, a, b_mat, c_mat)
+    return _SSD.apply(x, dt, a, b_mat, c_mat)
 
 
 ssd.launches = 0

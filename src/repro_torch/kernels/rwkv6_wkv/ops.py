@@ -9,10 +9,15 @@ a CPU tensor runs the plain version
 (:func:`repro_torch.kernels.rwkv6_wkv.ref.wkv_chunked`).  There is no
 fallback between the two: a CUDA tensor launches the kernel or raises.
 
-The kernel has no backward: the serving path runs under
-``torch.inference_mode()``, and a CUDA input that requires grad raises.
-Decode (:func:`wkv_decode_step`) is plain PyTorch, as it is jnp in the JAX
-package.
+Gradients flow through an ``autograd.Function`` (the JAX ``custom_vjp``): its
+forward launches the kernel (or runs the plain version on the CPU) and saves
+the inputs; its backward recomputes through ``wkv_chunked`` under autograd
+and returns ``torch.autograd.grad``, as the JAX ``_bwd`` recomputes through
+``wkv_chunked_jnp``.  Training drops the final state, so its cotangent may be
+absent.  The kernel has no backward of its own, so the raw launcher refuses
+inputs that require grad while grad mode is on: outside the Function its
+outputs would drop the gradient.  Decode (:func:`wkv_decode_step`) is plain
+PyTorch, as it is jnp in the JAX package.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import build, check_tensor
+from repro_torch.kernels._build import build, check_tensor, recompute_backward
 from repro_torch.kernels.rwkv6_wkv.ref import wkv_chunked, wkv_decode_step
 
 Tensor = torch.Tensor
@@ -87,7 +92,10 @@ def _launch(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor) -> tuple[Tens
     check_tensor("w", w, dev, (torch.float32, r.dtype), (bsz, l, h, kd))
     check_tensor("u", u, dev, torch.float32, (h, kd))
     if any(t.requires_grad for t in (r, k, v, w, u)) and torch.is_grad_enabled():
-        raise RuntimeError("wkv has no backward kernel yet; run under torch.inference_mode()")
+        raise RuntimeError(
+            "the wkv kernel has no backward kernel; call wkv(), whose autograd.Function "
+            "recomputes the backward through wkv_chunked"
+        )
 
     y = torch.empty_like(v)
     state = torch.empty((bsz, h, kd, vd), dtype=torch.float32, device=dev)
@@ -111,6 +119,27 @@ def _launch(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor) -> tuple[Tens
     return y, state
 
 
+class _WKV(torch.autograd.Function):
+    """Forward: the kernel on CUDA tensors, ``wkv_chunked`` on CPU tensors.
+    Backward: autograd through ``wkv_chunked`` on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u)
+        if r.device.type == "cpu":
+            return _plain(r, k, v, w, u)
+        return _launch(r, k, v, w, u)
+
+    @staticmethod
+    def backward(ctx, gy, gs):
+        return recompute_backward(_plain, ctx.saved_tensors, (gy, gs), ctx.needs_input_grad)
+
+
+def _plain(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor) -> tuple[Tensor, Tensor]:
+    return wkv_chunked(r, k, v, w, u, chunk=CHUNK)
+
+
 def wkv(
     r: Tensor,  # (B, L, H, K)
     k: Tensor,  # (B, L, H, K)
@@ -127,13 +156,13 @@ def wkv(
     ragged last chunk is shorter, which gives what the JAX wrapper's chunk
     ``min(64, L)`` and identity padding (w = 1, k = 0) give.  The chunked
     form is exact for any chunk, so the two differ only in the order of fp32
-    sums.
+    sums.  Both go through the ``autograd.Function``, whose backward is
+    ``wkv_chunked``'s; nothing is padded, so the gradient reaches the inputs
+    as they are.
     """
-    if r.device.type == "cpu":
-        return wkv_chunked(r, k, v, w, u, chunk=CHUNK)
-    if r.device.type != "cuda":
+    if r.device.type not in ("cpu", "cuda"):
         raise ValueError(f"wkv runs on cuda or cpu tensors, not {r.device.type}")
-    return _launch(r, k, v, w, u)
+    return _WKV.apply(r, k, v, w, u)
 
 
 wkv.launches = 0

@@ -1,9 +1,10 @@
 """Batched serving loop: prompt then greedy decode with a KV/state cache.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b --smoke --device cpu
 
 runs a small batched generation end to end on the CPU; without ``--device``
-it runs on the card.
+it runs on the card.  ``--arch`` takes any id of the port's registry, and
+defaults to tinyllama-1.1b, as the JAX launcher does.
 """
 from __future__ import annotations
 
@@ -44,7 +45,7 @@ def generate(model, prompts: Tensor, max_new_tokens: int = 32) -> Tensor:
 
 def main(argv=None) -> Tensor:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="zamba2-1.2b")
+    ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)

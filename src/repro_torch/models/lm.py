@@ -1,15 +1,20 @@
-"""Decoder-only causal LM for the hybrid family (zamba2: Mamba2 layers in
-groups, with one weight-shared attention block after every group) and the
-ssm family (rwkv6: RWKV6 time mix and channel mix layers), the JAX package's
-``models/lm.py``; the dense, gemma2 and moe families are not ported yet.
+"""Decoder-only causal LM for the dense family (llama-style GQA attention and
+MLP layers: tinyllama, qwen3, chatglm3, chameleon), the hybrid family
+(zamba2: Mamba2 layers in groups, with one weight-shared attention block
+after every group) and the ssm family (rwkv6: RWKV6 time mix and channel mix
+layers), the JAX package's ``models/lm.py``; the moe family and gemma2's
+local/global pairs, sandwich norms and soft-caps are not ported yet.
 
 The parameters live on the module as a tree whose names are the JAX tree's
 paths, with the JAX tree's leading layer axis unstacked into per-layer
 entries: ``embed``, ``final_norm``, ``unembed`` (untied embeddings only),
 ``layers.<i>.input_norm``, ``layers.<i>.mamba.ssm_in_proj``,
 ``layers.<i>.rwkv.r_proj``, ``shared_attn.attn.q_proj``, ...  Weights keep
-the JAX ``(in, out)`` layout.  The serving path holds them without
-gradients; LM training is a later slice.
+the JAX ``(in, out)`` layout.  The parameters are trainable; the serving
+path runs under ``torch.inference_mode()``.  Training takes ``loss``, whose
+cross-entropy never builds the (B, L, V) logits, and rematerialises each
+layer in the backward where the JAX ``_run_layers`` does
+(``torch.utils.checkpoint``).
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import blocks
 from repro_torch.models.config import ModelConfig
@@ -40,7 +46,7 @@ class ParamTree(nn.Module):
             elif isinstance(value, list):
                 self.add_module(name, nn.ModuleList(ParamTree(v) for v in value))
             else:
-                self.register_parameter(name, nn.Parameter(value, requires_grad=False))
+                self.register_parameter(name, nn.Parameter(value))
 
     def __getitem__(self, name: str):
         return getattr(self, name)
@@ -72,6 +78,8 @@ def _dense_layer_train(lp, x: Tensor, cfg: ModelConfig, window: int | None) -> T
 def _dense_layer_decode(
     lp, x_t: Tensor, cache: dict, pos: int, cfg: ModelConfig, window: int | None
 ) -> Tensor:
+    """One-token pass; the layer's KV cache (``cache["k"]``/``["v"]``) is
+    written in place."""
     h = rms_norm(x_t, lp["input_norm"], cfg.norm_eps)
     a, _ = blocks.attn_decode(lp["attn"], h, cache, pos, cfg, window=window)
     x_t = x_t + a
@@ -121,11 +129,67 @@ def _rwkv_layer_decode(lp, x_t: Tensor, cache: dict, cfg: ModelConfig) -> Tensor
     return x_t + y
 
 
+def _remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward
+    (``torch.utils.checkpoint``, the JAX ``jax.checkpoint``) when autograd
+    records; run once and plainly when it does not."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+# ---------------------------------------------------------------------------
+# Chunked cross-entropy: never materialises the (tokens, vocab) logits.
+# ---------------------------------------------------------------------------
+def _pow2_divisor(n: int, target: int) -> int:
+    c = 1
+    while c * 2 <= target and n % (c * 2) == 0:
+        c *= 2
+    return c
+
+
+def _xent_chunk(xc: Tensor, w: Tensor, lc: Tensor, softcap_val: float | None) -> tuple[Tensor, Tensor]:
+    """Sum over a chunk of (logz - gold logit) and of logz^2."""
+    logits = softcap((xc @ w.to(xc.dtype)).float(), softcap_val)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+    return (logz - gold).sum(), logz.square().sum()
+
+
+def chunked_softmax_xent(
+    x: Tensor,  # (B, L, d) final hidden states
+    w: Tensor,  # (d, V) unembedding
+    labels: Tensor,  # (B, L) int
+    softcap_val: float | None = None,
+    chunk_len: int = 512,
+) -> tuple[Tensor, Tensor]:
+    """Returns (mean nll, mean logz^2) over all tokens, as fp32 0-d tensors.
+
+    The sequence axis is cut into chunks of ``_pow2_divisor(L, 512)`` rows;
+    each chunk's (B, chunk, V) logits are recomputed in the backward, so the
+    (B, L, V) logits never exist.  A table of at most 4e8 elements is cast to
+    x's dtype once, outside the chunk loop, as the JAX function hoists it.
+    """
+    b, l, _ = x.shape
+    chunk = _pow2_divisor(l, min(chunk_len, l))
+    if w.shape[0] * w.shape[1] <= 4 * 10**8:
+        w = w.to(x.dtype)
+    nll_sum = z_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for start in range(0, l, chunk):
+        nll, z = _remat(
+            _xent_chunk, x[:, start : start + chunk], w, labels[:, start : start + chunk], softcap_val
+        )
+        nll_sum, z_sum = nll_sum + nll, z_sum + z
+    t = b * l
+    return nll_sum / t, z_sum / t
+
+
 # ---------------------------------------------------------------------------
 # LM
 # ---------------------------------------------------------------------------
 class CausalLM(ParamTree):
-    """The causal LM of the hybrid (zamba2) and ssm (rwkv6) families.
+    """The causal LM of the dense (tinyllama, qwen3, chatglm3, chameleon),
+    hybrid (zamba2) and ssm (rwkv6) families.
 
     ``CausalLM(cfg, device=None)`` allocates the parameters on ``device``
     (``None`` means the card) without drawing them; :meth:`init` draws them
@@ -134,11 +198,16 @@ class CausalLM(ParamTree):
     dtypes with nothing allocated.
     """
 
-    FAMILIES = ("hybrid", "ssm")
+    FAMILIES = ("dense", "hybrid", "ssm")
 
     def __init__(self, cfg: ModelConfig, *, device: torch.device | str | None = None):
         if cfg.family not in self.FAMILIES:
             raise ValueError(f"family {cfg.family!r} is not yet ported; the port has {self.FAMILIES}")
+        if cfg.alt_local_global or cfg.sandwich_norm or cfg.name.startswith("gemma"):
+            raise ValueError(
+                f"{cfg.name}: gemma2's local/global pairs, sandwich norms and (1 + scale) "
+                "norms are not yet ported"
+            )
         dev = resolve_device(device)
         self.cfg = cfg
         self.dtype = _dtype(cfg.param_dtype)
@@ -161,7 +230,9 @@ class CausalLM(ParamTree):
         }
         if not cfg.tied_embeddings:
             tree["unembed"] = embed_param(generator, cfg.vocab, cfg.d_model, dtype).T.contiguous()
-        if cfg.family == "ssm":
+        if cfg.family == "dense":
+            tree["layers"] = [_init_dense_layer(generator, cfg, dtype) for _ in range(cfg.n_layers)]
+        elif cfg.family == "ssm":
             tree["layers"] = [_init_rwkv_layer(generator, cfg, dtype) for _ in range(cfg.n_layers)]
         else:
             tree["layers"] = [_init_mamba_layer(generator, cfg, dtype) for _ in range(cfg.n_layers)]
@@ -193,16 +264,24 @@ class CausalLM(ParamTree):
     def apply_hidden(self, tokens: Tensor) -> Tensor:
         """tokens (B, L) -> final hidden states (B, L, d) before the unembed.
         (The JAX method also returns the MoE auxiliary loss; these families
-        have none.)"""
+        have none.)
+
+        While autograd records, each layer's activations are recomputed in
+        the backward, where the JAX ``_run_layers`` puts ``jax.checkpoint``:
+        every dense and RWKV6 layer, and the hybrid's Mamba2 layers but not
+        its shared attention block."""
         cfg = self.cfg
         x = self.embed[tokens].to(_dtype(cfg.compute_dtype))
-        if cfg.family == "ssm":
+        if cfg.family == "dense":
             for layer in self.layers:
-                x = _rwkv_layer_train(layer, x, cfg)
+                x = _remat(_dense_layer_train, layer, x, cfg, cfg.window)
+        elif cfg.family == "ssm":
+            for layer in self.layers:
+                x = _remat(_rwkv_layer_train, layer, x, cfg)
         else:
             for start, end in self.groups:
                 for i in range(start, end):
-                    x = _mamba_layer_train(self.layers[i], x, cfg)
+                    x = _remat(_mamba_layer_train, self.layers[i], x, cfg)
                 x = _dense_layer_train(self.shared_attn, x, cfg, None)
         return rms_norm(x, self.final_norm, cfg.norm_eps)
 
@@ -211,6 +290,18 @@ class CausalLM(ParamTree):
         logits (tests and small evaluations)."""
         return self._unembed(self.apply_hidden(tokens))
 
+    def loss(self, tokens: Tensor, labels: Tensor) -> tuple[Tensor, dict[str, Tensor]]:
+        """Mean next-token cross-entropy plus the z-loss (and the MoE
+        auxiliary loss, 0 for these families): ``(total, {"nll", "z_loss",
+        "moe_aux"})``, fp32 0-d tensors.  Never builds the (B, L, V) logits."""
+        cfg = self.cfg
+        x = self.apply_hidden(tokens)
+        nll, logz_sq = chunked_softmax_xent(x, self.unembed_weight, labels, softcap_val=cfg.final_softcap)
+        z_loss = cfg.z_loss * logz_sq
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        total = nll + z_loss + cfg.moe_aux_loss * aux
+        return total, {"nll": nll, "z_loss": z_loss, "moe_aux": aux}
+
     def _unembed(self, x: Tensor) -> Tensor:
         logits = (x @ self.unembed_weight.to(x.dtype)).float()
         return softcap(logits, self.cfg.final_softcap)
@@ -218,7 +309,8 @@ class CausalLM(ParamTree):
     # -------------------------- decode --------------------------------
     def init_cache(self, batch: int, max_len: int) -> dict:
         """Zeroed caches on the model's device, stacked over the layers as
-        in the JAX package.  ssm: per layer the last normed inputs of the
+        in the JAX package.  dense: per layer the keys and values (B, Hkv,
+        max_len, hd) in the compute dtype.  ssm: per layer the last normed inputs of the
         time mix and channel mix and the WKV state (``max_len`` is unused).
         hybrid: per Mamba layer the conv window and SSM state, and one KV
         cache per shared-attention site (its inputs differ per site although
@@ -228,9 +320,11 @@ class CausalLM(ParamTree):
         def stacked(n: int, one: dict) -> dict:
             return {k: v.new_zeros((n,) + v.shape) for k, v in one.items()}
 
+        kv_dtype = _dtype(cfg.compute_dtype)
+        if cfg.family == "dense":
+            return stacked(cfg.n_layers, blocks.init_attn_cache(cfg, batch, max_len, kv_dtype, device=dev))
         if cfg.family == "ssm":
             return stacked(cfg.n_layers, blocks.init_rwkv_cache(cfg, batch, device=dev))
-        kv_dtype = _dtype(cfg.compute_dtype)
         return {
             "mamba": stacked(cfg.n_layers, blocks.init_mamba_cache(cfg, batch, device=dev)),
             "shared_attn": stacked(
@@ -245,7 +339,10 @@ class CausalLM(ParamTree):
         of the stacked tensors), and the same dict is returned."""
         cfg = self.cfg
         x = self.embed[tokens_t].to(_dtype(cfg.compute_dtype))
-        if cfg.family == "ssm":
+        if cfg.family == "dense":
+            for i, layer in enumerate(self.layers):
+                x = _dense_layer_decode(layer, x, {k: v[i] for k, v in cache.items()}, pos, cfg, cfg.window)
+        elif cfg.family == "ssm":
             for i, layer in enumerate(self.layers):
                 x = _rwkv_layer_decode(layer, x, {k: v[i] for k, v in cache.items()}, cfg)
         else:

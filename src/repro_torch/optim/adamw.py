@@ -6,8 +6,7 @@ count is a Python int on the host and the schedule returns a Python float,
 so an update launches device work only and never waits for the device.
 
     state = adamw_init(params)
-    updates, state, gnorm = adamw_update(grads, state, params, lr, config)
-    apply_updates(params, updates)           # in place: new = params + updates
+    state, gnorm = adamw_step_(grads, state, params, lr, config)   # in place
 """
 from __future__ import annotations
 
@@ -40,11 +39,10 @@ def global_norm(tree: dict[str, Tensor]) -> Tensor:
     return torch.sqrt(sum(t.float().square().sum() for t in tree.values()))
 
 
-def clip_by_global_norm(tree: dict[str, Tensor], max_norm: float) -> tuple[dict, Tensor]:
-    """Scale every tensor by ``min(1, max_norm / max(norm, 1e-9))``."""
-    norm = global_norm(tree)
-    scale = (max_norm / norm.clamp_min(1e-9)).clamp_max(1.0)
-    return {k: g * scale for k, g in tree.items()}, norm
+def _clip_scale(norm: Tensor, max_norm: float) -> Tensor:
+    """``min(1, max_norm / max(norm, 1e-9))``, a float32 0-d tensor: the
+    factor ``repro.optim.clip_by_global_norm`` scales every gradient by."""
+    return (max_norm / norm.clamp_min(1e-9)).clamp_max(1.0)
 
 
 def adamw_init(params: dict[str, Tensor]) -> AdamWState:
@@ -55,46 +53,47 @@ def adamw_init(params: dict[str, Tensor]) -> AdamWState:
     )
 
 
-def adamw_update(
+def _bias_corrections(step: int, config: AdamWConfig) -> tuple[float, float]:
+    """1 - b^step for both moments, in float32 as the JAX package computes them."""
+    return (
+        float(np.float32(1.0) - np.float32(config.b1) ** np.float32(step)),
+        float(np.float32(1.0) - np.float32(config.b2) ** np.float32(step)),
+    )
+
+
+@torch.no_grad()
+def adamw_step_(
     grads: dict[str, Tensor],
     state: AdamWState,
     params: dict[str, Tensor],
     lr: float | Callable[[int], float],
     config: AdamWConfig = AdamWConfig(),
-) -> tuple[dict[str, Tensor], AdamWState, Tensor]:
-    """Returns ``(updates, new_state, grad_norm)``; new params = params + updates.
+) -> tuple[AdamWState, Tensor]:
+    """One AdamW step, in place: the moments in ``state`` and the parameters
+    are overwritten one tensor at a time, so neither is held twice.  Returns
+    ``(new_state, grad_norm)``; the new state holds the same moment tensors.
 
-    The schedule is called with the incremented step, so the first update
-    uses ``lr(1)``.  Moments are float32 whatever the gradient's dtype, and
-    eps is added to ``sqrt(nu_hat)``.
+    The schedule is called with the incremented step, so the first step uses
+    ``lr(1)``.  The gradients are clipped by their global norm when
+    ``max_grad_norm`` is set (in float32), the moments are float32 whatever
+    the gradient's dtype, eps is added to ``sqrt(nu_hat)``, and the update
+    ``-lr * (mu_hat / (sqrt(nu_hat) + eps) + wd * p)`` is cast to the
+    parameter's dtype before it is added, as ``repro.optim``'s
+    ``adamw_update`` + ``apply_updates`` compute it.
     """
     step = state.step + 1
     lr_t = lr(step) if callable(lr) else lr
-    if config.max_grad_norm is not None:
-        grads, gnorm = clip_by_global_norm(grads, config.max_grad_norm)
-    else:
-        gnorm = global_norm(grads)
-
+    gnorm = global_norm(grads)
+    scale = None if config.max_grad_norm is None else _clip_scale(gnorm, config.max_grad_norm)
     b1, b2 = config.b1, config.b2
-    mu = {k: b1 * state.mu[k] + (1 - b1) * g.float() for k, g in grads.items()}
-    nu = {k: b2 * state.nu[k] + (1 - b2) * g.float().square() for k, g in grads.items()}
-    # bias corrections in float32, as the JAX package computes them
-    bc1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(step))
-    bc2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(step))
-
-    updates = {}
+    bc1, bc2 = _bias_corrections(step, config)
     for k, p in params.items():
-        direction = (mu[k] / bc1) / ((nu[k] / bc2).sqrt() + config.eps)
+        g = grads[k].float() if scale is None else grads[k].float() * scale
+        mu, nu = state.mu[k], state.nu[k]
+        mu.mul_(b1).add_((1 - b1) * g)
+        nu.mul_(b2).add_((1 - b2) * g.square())
+        direction = (mu / bc1) / ((nu / bc2).sqrt() + config.eps)
         if config.weight_decay:
-            direction = direction + config.weight_decay * p.detach().float()
-        updates[k] = (-lr_t * direction).to(p.dtype)
-    return updates, AdamWState(step=step, mu=mu, nu=nu), gnorm
-
-
-def apply_updates(params: dict[str, Tensor], updates: dict[str, Tensor]) -> dict[str, Tensor]:
-    """Add ``updates`` to ``params`` in place (an ``nn.Module``'s parameters
-    change where they live) and return ``params``."""
-    with torch.no_grad():
-        for k, p in params.items():
-            p.add_(updates[k])
-    return params
+            direction = direction + config.weight_decay * p.float()
+        p.add_((-lr_t * direction).to(p.dtype))
+    return AdamWState(step=step, mu=state.mu, nu=state.nu), gnorm

@@ -25,3 +25,24 @@ def linear_anneal(lr: float, total_steps: int):
         return float(np.float32(lr) * frac)
 
     return fn
+
+
+def cosine_warmup_schedule(peak_lr: float, warmup_steps: int, total_steps: int, final_frac: float = 0.1):
+    """Linear warmup then cosine decay to final_frac * peak (LM pretraining).
+
+    The constants are folded in double and rounded to float32 once, as JAX
+    folds Python scalars before they meet a float32 array."""
+    f32 = np.float32
+    floor = f32(final_frac * peak_lr)
+    half_span = f32((1 - final_frac) * peak_lr * 0.5)
+
+    def fn(step: int) -> float:
+        s = f32(step)
+        if step < warmup_steps:
+            return float(f32(peak_lr) * s / f32(max(warmup_steps, 1)))
+        prog = np.clip((s - f32(warmup_steps)) / f32(max(total_steps - warmup_steps, 1)), f32(0.0), f32(1.0))
+        # the cosine in double, rounded once: numpy's float32 cos is off by an ulp
+        cos = f32(np.cos(np.float64(f32(np.pi) * prog)))
+        return float(floor + half_span * (f32(1.0) + cos))
+
+    return fn

@@ -38,8 +38,7 @@ from repro_torch.optim import (
     AdamWConfig,
     AdamWState,
     adamw_init,
-    adamw_update,
-    apply_updates,
+    adamw_step_,
     constant_schedule,
     linear_anneal,
 )
@@ -358,10 +357,9 @@ class PPOTrain:
                         net, obs[idx], action[idx], value[idx], log_prob[idx], gae[idx], targets[idx]
                     )
                     grads = torch.autograd.grad(total, list(params.values()))
-                    updates, opt_state, gnorm = adamw_update(
+                    opt_state, gnorm = adamw_step_(
                         dict(zip(params, grads)), opt_state, params, self.lr, self.opt_config
                     )
-                    apply_updates(params, updates)
                     for k, v in {"loss": total, "grad_norm": gnorm, **aux}.items():
                         history.setdefault(k, []).append(v.detach())
             losses = {k: torch.stack(v) for k, v in history.items()}

@@ -199,7 +199,7 @@ def test_registry_holds_the_jax_configs_and_refuses_the_rest():
             with pytest.raises(KeyError, match="not yet ported"):
                 registry.get_config(arch)
     with pytest.raises(ValueError, match="not yet ported"):
-        CausalLM(jax_registry.get_config("tinyllama-1.1b", smoke=True), device="meta")
+        CausalLM(jax_registry.get_config("granite-moe-3b-a800m", smoke=True), device="meta")
 
 
 def test_lm_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):

@@ -138,15 +138,16 @@ def test_untied_unembed_is_carried_and_used():
     port_cfg = dataclasses.replace(registry.get_config("zamba2-1.2b", smoke=True), tied_embeddings=False)
     for jm, params, tm in (_convert(jax_cfg, port_cfg), _pair()):
         assert tm.unembed.shape == (tm.cfg.d_model, tm.cfg.vocab)
-        np.testing.assert_array_equal(tm.unembed.numpy(), np.asarray(params["unembed"]))
+        np.testing.assert_array_equal(tm.unembed.detach().numpy(), np.asarray(params["unembed"]))
         toks = _tokens(8, B, 16)
         want = np.asarray(jax.jit(jax_make_prefill_step(jm))(params, {"tokens": jnp.asarray(toks)}))
         got = make_prefill_step(tm)({"tokens": torch.from_numpy(toks)})
         np.testing.assert_allclose(got.numpy(), want, **TOL)
         with torch.inference_mode():
             last = tm.apply_hidden(torch.from_numpy(toks))[:, -1]
-        torch.testing.assert_close(got, last @ tm.unembed, **TOL)
-        assert not torch.allclose(got, last @ tm.embed.T, **TOL)
+            from_unembed, from_embed = last @ tm.unembed, last @ tm.embed.T
+        torch.testing.assert_close(got, from_unembed, **TOL)
+        assert not torch.allclose(got, from_embed, **TOL)
 
 
 @pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
