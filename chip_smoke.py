@@ -230,8 +230,43 @@ Phases, in order (any failure raises and the script exits non-zero):
    <= 0.05; the fp32 loss's central-difference slope along the fp32
    gradient within 2 % of its norm at two step lengths; the fp32 loss after
    Adam's first update, whole and by group of leaves, beside its
-   first-order prediction (printed, not checked); then the same 5 steps
-   with fp32 parameters, each loss within 10 % of the bf16 step's.
+   first-order prediction (printed, not checked); then the first 3 of
+   those steps with fp32 parameters, each loss within 10 % of the bf16
+   step's;
+36. flash at the shapes and options the rest of the LM stack launches,
+   against ``mha_blocked`` at phase 8's tolerances, each timed beside its
+   bound (live pairs only: the diagonal's triangle, the window's band; fp32
+   at the CUDA-core peak) and SDPA's where one call computes the same
+   function: gemma2-9b's local (window 4096) and global layers at 2 x 8192,
+   D 256, soft-cap 50, bf16; qwen3-moe-30b-a3b's 4 x 4096, GQA 32/4, D 128,
+   bf16; whisper-base's encoder (8 x 1500 frames, non-causal, fp32) and
+   cross-attention (448 queries over 1500 keys, fp32);
+37. the new models on the card against the CPU: granite-moe-3b-a800m,
+   qwen3-moe-30b-a3b and gemma2-9b at full width cut to 2 layers (gemma2:
+   one local/global pair), whisper-base to 2 encoder and 2 decoder layers,
+   fp32, TF32 off, the same weights and B 2 x L 256 (whisper: and 1500
+   frames): last-position logits at phase 10's limit; one training step's
+   loss and gradients at phase 31's for granite, gemma2 and whisper; every
+   MoE router call's experts compared, a difference allowed only where the
+   CPU's two probabilities at that place are within 1e-5 (each printed),
+   and a dispatch group with one left out of the logits it feeds; exact
+   flash launches;
+38. serving at full width, each model freed before the next: granite and
+   qwen3-moe prefill at 4 x 4096, gemma2-9b at 2 x 8192 (past its window),
+   whisper-base at 4 x 448 tokens over 1500 fp32 frames, then ``generate``
+   at B 4, prompt 16, 32 new tokens and the same decode stepped: exactly
+   32 / 48 / 42 / 6 + 12 flash launches a prefill and 0 / 0 / 0 / 6 a
+   ``generate`` (the decoder-only models feed the prompt through
+   ``decode_step``; whisper encodes once); prefill tokens/s, decode p50/p99
+   ms, peak memory, and each ``init``'s peak over its weights
+   (qwen3-moe-30b-a3b's within 2 GB of its 61 GB);
+39. granite-moe-3b-a800m training at full width and depth (B 8 x L 2048,
+   bf16, lr 1e-3, 12 steps): exactly 64 flash launches a step, loss finite
+   and its last 5 steps' mean below its first 5's, step and host issue ms,
+   tokens/s, peak memory, the MoE aux loss a step; one step under
+   ``torch.profiler`` with the share of the MoE dispatch/combine einsums
+   and of the plain attention backward; then whisper-base (B 8 x 448 tokens
+   with 1500 frames, 10 steps): exactly 36 flash launches a step.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and before that a ``{"kernels": [...]}``
@@ -239,11 +274,14 @@ line with all four kernels (``chargax_step``'s launches summed over the
 episode of phase 4, the training of phases 20 and 23, the sweep of phase 24,
 the fleet phases 25-27 and the telemetry phase 28, by path, with the fleet
 route's pack times; each LM kernel's launches summed over its prefill and
-its training steps of phases 33-34, by path).  Needs the repository's
+its training steps of phases 33-34 and 38-39, by path; flash also with
+phase 36's shapes).  Needs the repository's
 ``src/`` beside this file.  Every path runs at its full depth.
 """
 from __future__ import annotations
 
+import bisect
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -293,6 +331,7 @@ from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv.ref import wkv_chunked  # noqa: E402
 from repro_torch.launch import rl_train  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.models import blocks  # noqa: E402
 from repro_torch.models.modules import DTYPES  # noqa: E402
 from repro_torch.optim import cosine_warmup_schedule  # noqa: E402
 from repro_torch.rl import (  # noqa: E402
@@ -401,8 +440,48 @@ CITY_CANDIDATES = 4096
 TINY = "tinyllama-1.1b"
 TRAIN_B, TRAIN_L, TRAIN_STEPS, TRAIN_LR = 8, 2048, 30, 1e-3
 SCAN_TRAIN_B, SCAN_TRAIN_STEPS = 2, 5
+WITNESS_FP32_STEPS = 3  # rwkv6-3b's fp32 witness: the first 3 of its 5 steps (their rise shows by step 3)
 CHECK_B, CHECK_L = 2, 256  # phase 31's card-against-CPU batch
 TRAINER_TIMEOUT_S = 300
+# the rest of the LM stack (phases 36-39): granite-moe-3b-a800m
+# (hf:ibm-granite/granite-3.0-3b-a800m), qwen3-moe-30b-a3b (hf:Qwen/Qwen3-30B-A3B),
+# gemma2-9b (arXiv:2408.00118), whisper-base (arXiv:2212.04356)
+GRANITE, QWEN_MOE, GEMMA, WHISPER = "granite-moe-3b-a800m", "qwen3-moe-30b-a3b", "gemma2-9b", "whisper-base"
+# phase 36: (name, (b, hq, hkv, lq, lk, d), dtype, options): gemma2-9b's local
+# and global layers at its prefill of 2 x 8192, qwen3-moe's at 4 x 4096,
+# whisper-base's encoder (fp32: its frames are) and cross-attention at its
+# training batch of 8 (448 text tokens over 1500 frames)
+FA_SLICE_CASES = [
+    ("gemma2_local", (2, 16, 8, 8192, 8192, 256), torch.bfloat16, dict(causal=True, window=4096, softcap=50.0)),
+    ("gemma2_global", (2, 16, 8, 8192, 8192, 256), torch.bfloat16, dict(causal=True, softcap=50.0)),
+    ("qwen3_moe", (4, 32, 4, 4096, 4096, 128), torch.bfloat16, dict(causal=True)),
+    ("whisper_encoder", (8, 8, 8, 1500, 1500, 64), torch.float32, dict(causal=False)),
+    ("whisper_cross", (8, 8, 8, 448, 1500, 64), torch.float32, dict(causal=False)),
+]
+# phase 37: each arch's cut (one gemma2 pair; 2 whisper encoder and decoder
+# layers), the flash launches of its prefill and of a training step (None:
+# not trained here; qwen3-moe-30b-a3b's CPU step would hold ~15 GB of fp32
+# expert gradients for no path that trains it)
+SLICE_CHECK = {
+    GRANITE: (dict(n_layers=2), 2, 4),
+    QWEN_MOE: (dict(n_layers=2), 2, None),
+    GEMMA: (dict(n_layers=2), 2, 4),
+    WHISPER: (dict(n_layers=2, n_enc_layers=2), 6, 12),
+}
+ROUTE_TIE = 1e-5  # a routing difference is allowed only where two router probabilities are this close
+# phase 38: (prefill B, L, flash launches a prefill, a generate)
+SLICE_SERVE = {
+    GRANITE: (4, 4096, 32, 0),
+    QWEN_MOE: (4, 4096, 48, 0),
+    GEMMA: (2, 8192, 42, 0),  # L past the 4096 window of its 21 local layers
+    WHISPER: (4, 448, 6 + 12, 6),  # Whisper's 448-token text context over 1500 frames; generate encodes once
+}
+INIT_SLACK_BYTES = 2e9  # qwen3-moe-30b-a3b's init may take this much over its 61 GB of weights
+# phase 39: granite-moe-3b-a800m as tinyllama (B 8 x L 2048, lr 1e-3), 12
+# steps (its first and last 5 apart); whisper-base at B 8 x 448 text tokens
+# with 1500 frames, 10 steps
+MOE_TRAIN_STEPS = 12
+WHISPER_TRAIN_B, WHISPER_TRAIN_L, WHISPER_TRAIN_STEPS = 8, 448, 10
 # (b, hq, hkv, l, d): GQA at 512, D = 128 with a ragged L, tinyllama's
 # training shape; fp32 on the CUDA-core route
 FA_GRAD_SHAPES = [((2, 8, 2, 512, 64), torch.bfloat16), ((1, 4, 4, 300, 128), torch.bfloat16),
@@ -794,15 +873,41 @@ def launch_counts() -> dict[str, int]:
     }
 
 
-def serve_lm(dev: torch.device, arch: str, expect_counts: dict[str, int]) -> tuple:
-    """Phases 11 and 16.  Returns (metrics, the prefill run's launch counts,
-    the model, the prefill step, its batch)."""
+def stub_frames(cfg, b: int, seed: int) -> torch.Tensor | None:
+    """fp32 stub frame embeddings (b, enc_seq, d) for the encdec family, as
+    the serve launcher draws them; None for the others."""
+    if cfg.family != "encdec":
+        return None
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal((b, cfg.enc_seq, cfg.d_model), dtype=np.float32))
+
+
+def serve_lm(dev: torch.device, arch: str, expect_counts: dict[str, int], b: int = PREFILL_B,
+             length: int = PREFILL_L, expect_generate: dict[str, int] | None = None) -> tuple:
+    """Phases 11, 16 and 38: ``init`` (its peak memory over the weights),
+    the prefill of B x L tokens (whisper: and B x 1500 fp32 frames) with
+    exactly ``expect_counts`` launches, ``generate`` (exactly
+    ``expect_generate`` launches when given) and its decode stepped and
+    timed.  Returns (metrics, the prefill run's launch counts, the model,
+    the prefill step, its batch)."""
     cfg = get_config(arch)
-    model = build_model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model = build_model(cfg, device=dev)
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_over = torch.cuda.max_memory_allocated() - base - weight_bytes
     check(model.dtype == torch.bfloat16, f"{arch} runs in {model.dtype}")
     n_params = sum(p.numel() for p in model.parameters())
-    tokens = np.random.default_rng(11).integers(0, cfg.vocab, (PREFILL_B, PREFILL_L), dtype=np.int32)
+    print(f"init: {arch} {n_params} params, {weight_bytes} bytes of weights, init peak {init_over} bytes over them")
+    tokens = np.random.default_rng(11).integers(0, cfg.vocab, (b, length), dtype=np.int32)
     batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+    frames = stub_frames(cfg, b, 11)
+    if frames is not None:
+        batch["frames"] = frames.to(dev)
     prefill = make_prefill_step(model)
     prefill(batch)  # warm-up
     torch.cuda.synchronize()
@@ -813,7 +918,7 @@ def serve_lm(dev: torch.device, arch: str, expect_counts: dict[str, int]) -> tup
     torch.cuda.synchronize()
     counts = launch_counts()
     check(counts == expect_counts, f"{arch} prefill launches {counts}, expected {expect_counts}")
-    check(logits.shape == (PREFILL_B, cfg.vocab), f"prefill logits {tuple(logits.shape)}")
+    check(logits.shape == (b, cfg.vocab), f"prefill logits {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
@@ -826,9 +931,10 @@ def serve_lm(dev: torch.device, arch: str, expect_counts: dict[str, int]) -> tup
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     prefill_ms = statistics.median(times)
-    prefill_tok_s = PREFILL_B * PREFILL_L / (prefill_ms / 1000.0)
+    prefill_tok_s = b * length / (prefill_ms / 1000.0)
     print(
-        f"prefill: {arch} ({n_params} params, bf16) B={PREFILL_B} L={PREFILL_L}: "
+        f"prefill: {arch} ({n_params} params, bf16) B={b} L={length}"
+        f"{f' with {cfg.enc_seq} fp32 frames' if frames is not None else ''}: "
         f"median {prefill_ms:.3f} ms of 5 ({', '.join(f'{t:.3f}' for t in times)}), "
         f"{prefill_tok_s:.0f} tokens/s, launches {counts}, peak memory {peak_gib:.3f} GiB"
     )
@@ -836,15 +942,20 @@ def serve_lm(dev: torch.device, arch: str, expect_counts: dict[str, int]) -> tup
     prompts = torch.from_numpy(
         np.random.default_rng(12).integers(0, cfg.vocab, (DECODE_B, PROMPT_LEN), dtype=np.int32)
     )
-    seqs = generate(model, prompts, NEW_TOKENS)  # also the warm-up of the timed decode
+    dec_frames = stub_frames(cfg, DECODE_B, 12)
+    reset_launch_counts()
+    seqs = generate(model, prompts, NEW_TOKENS, dec_frames)  # also the warm-up of the timed decode
     torch.cuda.synchronize()
+    gen_counts = launch_counts()
+    if expect_generate is not None:
+        check(gen_counts == expect_generate, f"{arch} generate launches {gen_counts}, expected {expect_generate}")
     check(seqs.shape == (DECODE_B, PROMPT_LEN + NEW_TOKENS), f"generate shape {tuple(seqs.shape)}")
     check(bool(((seqs >= 0) & (seqs < cfg.vocab)).all()), "generated tokens out of range")
     check(torch.equal(seqs[:, :PROMPT_LEN].cpu(), prompts), "generate changed the prompt")
 
     # the same decode, timed step by step
     step = make_serve_step(model)
-    cache = model.init_cache(DECODE_B, PROMPT_LEN + NEW_TOKENS)
+    cache = fresh_cache(model, DECODE_B, PROMPT_LEN + NEW_TOKENS, dec_frames)
     prompts_d = prompts.to(dev)
     for t in range(PROMPT_LEN):
         tok, cache = step(cache, prompts_d[:, t : t + 1], t)
@@ -863,26 +974,51 @@ def serve_lm(dev: torch.device, arch: str, expect_counts: dict[str, int]) -> tup
     decode_tok_s = DECODE_B * NEW_TOKENS / sum(lat)
     print(
         f"decode: {arch} B={DECODE_B}, prompt {PROMPT_LEN}, {NEW_TOKENS} new tokens, stepped tokens "
-        f"equal generate's: {decode_tok_s:.1f} tokens/s, p50 {p50:.3f} ms p99 {p99:.3f} ms per step"
+        f"equal generate's (launches {gen_counts}): {decode_tok_s:.1f} tokens/s, p50 {p50:.3f} ms "
+        f"p99 {p99:.3f} ms per step"
     )
     metrics = {
+        "params": n_params,
+        "weight_bytes": weight_bytes,
+        "init_peak_over_weights_bytes": init_over,
+        "prefill_batch": b,
+        "prefill_len": length,
         "prefill_tokens_per_s": prefill_tok_s,
         "prefill_ms": prefill_ms,
         "prefill_peak_memory_gib": peak_gib,
         "decode_tokens_per_s": decode_tok_s,
         "decode_step_p50_ms": p50,
         "decode_step_p99_ms": p99,
+        "generate_launches": gen_counts,
     }
     return metrics, counts, model, prefill, batch
 
 
-def flash_bound(b: int, h: int, l: int, d: int, elem_bytes: int) -> tuple[float, str, int, float]:
-    """Least time of a causal (B, H, L, D) attention on the card: q, k, v read
-    once and o written once, against QK^T and PV over the L(L+1)/2 live
-    pairs at the bf16 tensor-core peak."""
-    n_bytes = 4 * b * h * l * d * elem_bytes
-    n_ops = 4.0 * b * h * d * l * (l + 1) / 2
-    return _bound(n_bytes, n_ops)
+@torch.inference_mode()
+def fresh_cache(model, b: int, max_len: int, frames: torch.Tensor | None) -> dict:
+    """A zeroed decode cache; the encdec family's holds ``frames``' cross K/V."""
+    if frames is None:
+        return model.init_cache(b, max_len)
+    return model.init_cache(b, max_len, model.encode(frames.to(model.device)))
+
+
+def attention_bound(b: int, hq: int, hkv: int, lq: int, lk: int, d: int, dtype: torch.dtype,
+                    causal: bool, window: int | None) -> tuple[float, str, int, float, int]:
+    """Least time of one attention call on the card: q, k, v read once and
+    o written once, against QK^T and PV over the (row, col) pairs the masks
+    leave live (the diagonal's triangle, the window's band; the queries at
+    the end of the kv axis) at the peak of the inputs' type: the bf16 tensor
+    cores, or fp32 outside them.  Returns (ms, what bounds it, bytes,
+    operations, live pairs per head)."""
+    elem = torch.tensor([], dtype=dtype).element_size()
+    n_bytes = elem * (2 * b * hq * lq * d + 2 * b * hkv * lk * d)
+    rows = np.arange(lq, dtype=np.int64) + (lk - lq)
+    first = np.zeros(lq, dtype=np.int64) if window is None else np.maximum(rows - window + 1, 0)
+    last = np.minimum(rows, lk - 1) if causal else np.full(lq, lk - 1, dtype=np.int64)
+    pairs = int(np.maximum(last - first + 1, 0).sum())
+    n_ops = 4.0 * b * hq * d * pairs
+    peak = PEAK_BF16_OPS_PER_S if dtype == torch.bfloat16 else PEAK_FP32_OPS_PER_S
+    return (*_bound(n_bytes, n_ops, peak), pairs)
 
 
 def ssd_bound(b: int, l: int, h: int, p: int, n: int, elem_bytes: int) -> tuple[float, str, int, float]:
@@ -899,9 +1035,9 @@ def ssd_bound(b: int, l: int, h: int, p: int, n: int, elem_bytes: int) -> tuple[
     return _bound(n_bytes, n_ops)
 
 
-def _bound(n_bytes: int, n_ops: float) -> tuple[float, str, int, float]:
+def _bound(n_bytes: int, n_ops: float, peak_ops: float = PEAK_BF16_OPS_PER_S) -> tuple[float, str, int, float]:
     bytes_ms = n_bytes / PEAK_HBM_BYTES_PER_S * 1000.0
-    ops_ms = n_ops / PEAK_BF16_OPS_PER_S * 1000.0
+    ops_ms = n_ops / peak_ops * 1000.0
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, n_ops
 
 
@@ -920,7 +1056,7 @@ def lm_kernel_times(dev: torch.device, ssd_lib: Path) -> dict[str, dict]:
         kernel_ms = time_ms(fa, qkv)
         plain_ms = time_ms(functools.partial(mha_blocked, causal=True), qkv, warmup=2, n=5)
         sdpa_ms = time_ms(functools.partial(F.scaled_dot_product_attention, is_causal=True), qkv)
-    bound_ms, bound_by, n_bytes, n_ops = flash_bound(b, h, l, d, 2)
+    bound_ms, bound_by, n_bytes, n_ops, _ = attention_bound(b, h, h, l, l, d, bf16, True, None)
     out["flash_attention"] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                   bound_by=bound_by, library_ms=sdpa_ms)
     print(
@@ -2206,6 +2342,31 @@ def kernel_grads_vs_plain(dev: torch.device) -> dict[str, float]:
 TRAIN_CARD_VS_CPU = dict(loss_rtol=1e-4, grad_rel=1e-3)
 
 
+def loss_and_grads(model, batch: dict) -> tuple[torch.Tensor, tuple]:
+    """One training step's loss and the gradient of every parameter, the
+    batch moved to the model's device (``frames`` too for the encdec family)."""
+    args = [batch[k].to(model.device) for k in ("tokens", "labels", "frames") if k in batch]
+    loss, _ = model.loss(*args)
+    return loss.detach(), torch.autograd.grad(loss, list(model.parameters()))
+
+
+def check_grads(arch: str, cpu_model, loss, grads, want_loss, want) -> tuple[float, float, str]:
+    """Holds the card's loss and each gradient to the CPU's at
+    TRAIN_CARD_VS_CPU; returns (relative loss error, worst relative
+    gradient norm error, its parameter)."""
+    rel_loss = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+    check(math.isfinite(float(loss)) and rel_loss <= TRAIN_CARD_VS_CPU["loss_rtol"],
+          f"{arch} card loss {float(loss)} against cpu {float(want_loss)}")
+    worst, worst_name = 0.0, None
+    for (name, _), g, w in zip(cpu_model.named_parameters(), grads, want):
+        rel = float((g.cpu() - w).norm() / w.norm().clamp_min(1e-30))
+        check(bool(torch.isfinite(g).all()) and rel <= TRAIN_CARD_VS_CPU["grad_rel"],
+              f"{arch} card vs cpu gradient {name}: relative norm error {rel}")
+        if rel >= worst:
+            worst, worst_name = rel, name
+    return rel_loss, worst, worst_name
+
+
 def train_card_vs_cpu(dev: torch.device, arch: str, n_layers: int, expect: dict[str, int]) -> dict:
     """Phase 31: one training step's loss and gradients, card against CPU,
     the same weights (one ``init`` on the CPU, copied) and the same batch."""
@@ -2217,28 +2378,15 @@ def train_card_vs_cpu(dev: torch.device, arch: str, n_layers: int, expect: dict[
         check(len(card_model.groups) == 1, f"{n_layers} layers give {card_model.groups}")
     batch = SyntheticTokens(DataConfig(vocab=cfg.vocab, batch=CHECK_B, seq_len=CHECK_L, seed=31)).batch(0)
 
-    def value_and_grads(model):
-        loss, _ = model.loss(*(batch[k].to(model.device) for k in ("tokens", "labels")))
-        return loss.detach(), torch.autograd.grad(loss, list(model.parameters()))
-
     t0 = time.perf_counter()
-    want_loss, want = value_and_grads(cpu_model)
+    want_loss, want = loss_and_grads(cpu_model, batch)
     cpu_s = time.perf_counter() - t0
     reset_launch_counts()
-    loss, grads = value_and_grads(card_model)
+    loss, grads = loss_and_grads(card_model, batch)
     torch.cuda.synchronize()
     counts = launch_counts()
     check(counts == {**dict.fromkeys(counts, 0), **expect}, f"{arch} card step launches {counts}, expected {expect}")
-    rel_loss = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
-    check(math.isfinite(float(loss)) and rel_loss <= TRAIN_CARD_VS_CPU["loss_rtol"],
-          f"{arch} card loss {float(loss)} against cpu {float(want_loss)}")
-    worst, worst_name = 0.0, None
-    for (name, _), g, w in zip(cpu_model.named_parameters(), grads, want):
-        rel = float((g.cpu() - w).norm() / w.norm().clamp_min(1e-30))
-        check(bool(torch.isfinite(g).all()) and rel <= TRAIN_CARD_VS_CPU["grad_rel"],
-              f"{arch} card vs cpu gradient {name}: relative norm error {rel}")
-        if rel >= worst:
-            worst, worst_name = rel, name
+    rel_loss, worst, worst_name = check_grads(arch, cpu_model, loss, grads, want_loss, want)
     print(
         f"train card vs cpu ({arch}, full width, {n_layers} layers, fp32, B={CHECK_B} L={CHECK_L}): "
         f"loss {float(loss):.6f} against {float(want_loss):.6f} (relative {rel_loss:.3g}, limit "
@@ -2332,14 +2480,16 @@ def trainer_resume_and_preempt(device: str, root: Path) -> dict:
 
 
 def train_full(dev: torch.device, arch: str, b: int, steps: int, expect: dict[str, int],
-               lr: float = TRAIN_LR, dtype: str = "bfloat16") -> tuple[dict, object, object, object, dict]:
-    """Phases 33 and 34: ``arch`` at full width and depth (bf16 parameters,
-    or ``dtype``'s; fp32 moments) from ``init`` seed 0, ``steps`` steps of
-    B x TRAIN_L synthetic tokens through ``make_train_step`` with CUDA
-    events around each and the host's time to issue it (``step_fn``'s
-    return, before the wait), every kernel count reset just before each step
-    and read just after (exactly ``expect`` a step, no other).  Returns
-    (summary, model, step, state, the last batch)."""
+               lr: float = TRAIN_LR, dtype: str = "bfloat16",
+               seq_len: int = TRAIN_L) -> tuple[dict, object, object, object, dict]:
+    """Phases 33, 34 and 39: ``arch`` at full width and depth (bf16
+    parameters, or ``dtype``'s; fp32 moments) from ``init`` seed 0, ``steps``
+    steps of B x ``seq_len`` synthetic tokens (whisper: and the pipeline's
+    fp32 frames) through ``make_train_step`` with CUDA events around each
+    and the host's time to issue it (``step_fn``'s return, before the wait),
+    every kernel count reset just before each step and read just after
+    (exactly ``expect`` a step, no other).  Returns (summary, model, step,
+    state, the last batch)."""
     cfg = dataclasses.replace(get_config(arch), param_dtype=dtype, compute_dtype=dtype)
     model = build_model(cfg, device=dev)
     check(model.dtype == DTYPES[dtype], f"{arch} trains in {model.dtype}")
@@ -2347,11 +2497,14 @@ def train_full(dev: torch.device, arch: str, b: int, steps: int, expect: dict[st
     torch.cuda.reset_peak_memory_stats()
     state = init_train_state(model, torch.Generator(device=dev).manual_seed(0), ts_cfg)
     step_fn = make_train_step(model, ts_cfg)
-    data = SyntheticTokens(DataConfig(vocab=cfg.vocab, batch=b, seq_len=TRAIN_L))
-    losses, ms, host_ms = [], [], []
+    data = SyntheticTokens(DataConfig(vocab=cfg.vocab, batch=b, seq_len=seq_len))
+    losses, moe_aux, ms, host_ms = [], [], [], []
     launches = dict.fromkeys(launch_counts(), 0)
     for i in range(steps):
-        batch = {k: v.to(dev) for k, v in data.batch(i).items()}
+        batch = data.batch(i)
+        if cfg.family == "encdec":
+            batch["frames"] = data.frames(i, cfg.enc_seq, cfg.d_model)
+        batch = {k: v.to(dev) for k, v in batch.items()}
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         reset_launch_counts()
         start.record()
@@ -2364,23 +2517,26 @@ def train_full(dev: torch.device, arch: str, b: int, steps: int, expect: dict[st
         check(counts == {**dict.fromkeys(counts, 0), **expect}, f"{arch} step {i} launches {counts}, expected {expect}")
         launches = {k: launches[k] + v for k, v in counts.items()}
         losses.append(float(metrics["loss"]))
+        moe_aux.append(float(metrics["moe_aux"]))
         ms.append(start.elapsed_time(end))
         check(math.isfinite(losses[-1]), f"{arch} step {i} loss {losses[-1]}")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     n_params = sum(p.numel() for p in model.parameters())
     med = statistics.median(ms[1:]) if steps > 1 else ms[0]
-    tok_s = b * TRAIN_L / (med / 1000.0)
+    tok_s = b * seq_len / (med / 1000.0)
     summary = {
-        "arch": arch, "dtype": dtype, "params": n_params, "batch": b, "seq_len": TRAIN_L, "steps": steps,
-        "lr": lr, "losses": losses, "step_ms": ms, "host_issue_ms": host_ms, "median_step_ms": med,
+        "arch": arch, "dtype": dtype, "params": n_params, "batch": b, "seq_len": seq_len, "steps": steps,
+        "lr": lr, "losses": losses, "moe_aux": moe_aux, "step_ms": ms, "host_issue_ms": host_ms,
+        "median_step_ms": med,
         "tokens_per_s": tok_s,
         "peak_memory_gib": peak_gib, "launches_per_step": expect, "launches": launches,
     }
     print(
-        f"train: {arch} ({n_params} params, {dtype}, fp32 moments) B={b} L={TRAIN_L}, {steps} steps: "
+        f"train: {arch} ({n_params} params, {dtype}, fp32 moments) B={b} L={seq_len}, {steps} steps: "
         f"median step {med:.3f} ms (first {ms[0]:.3f}; steps {[round(t, 1) for t in ms]}, host issue "
         f"{[round(t, 1) for t in host_ms]}), {tok_s:.0f} tokens/s, peak memory {peak_gib:.3f} GiB, "
         f"launches a step {expect}; loss {losses[0]:.4f} -> {losses[-1]:.4f}"
+        + (f"; moe_aux {[round(a, 4) for a in moe_aux]}" if cfg.family == "moe" else "")
     )
     return summary, model, step_fn, state, batch
 
@@ -2507,18 +2663,38 @@ def checkpoint_cost(state) -> dict:
     return {"bytes": size, "save_s": save_s}
 
 
-def profile_train_step(step_fn, state, batch, step_ms: float) -> tuple[dict, object]:
-    """Phase 35: one training step under ``torch.profiler``: device busy ms,
-    idle share of an unprofiled step, kernels a step, top kernels; the share
-    of the device time taken by the flash forward kernel and by the kernels
-    launched inside the flash Function's backward (the plain attention
-    backward), by the trace's correlation ids.  Returns (summary, state)."""
-    from torch.profiler import ProfilerActivity, profile
+def profile_train_step(step_fn, state, batch, step_ms: float, moe_groups: int | None = None) -> tuple[dict, object]:
+    """Phases 35 and 39: one training step under ``torch.profiler``: device
+    busy ms, idle share of an unprofiled step, kernels a step, top kernels;
+    the share of the device time taken by the flash forward kernel and by
+    the kernels launched inside the flash Function's backward (the plain
+    attention backward), by the trace's correlation ids.  With
+    ``moe_groups`` g, also the share of the kernels launched inside the
+    ``aten::bmm`` calls whose batch is g: the MoE dispatch and combine
+    einsums, forward, recompute and backward (the expert einsums batch over
+    the experts, the attention backward's over batch x heads; the shapes are
+    recorded for this), and of the kernels launched inside ``moe_apply``'s
+    forward and remat recompute (a span around each call; its backward
+    kernels cannot be told apart).  Returns (summary, state)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        state, _ = step_fn(state, batch)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    moe_apply = blocks.moe_apply
+
+    def spanned_moe_apply(*args, **kwargs):
+        with record_function("moe_apply"):
+            return moe_apply(*args, **kwargs)
+
+    if moe_groups:
+        blocks.moe_apply = spanned_moe_apply
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=bool(moe_groups)) as prof:
+            state, _ = step_fn(state, batch)
+            torch.cuda.synchronize()
+    finally:
+        blocks.moe_apply = moe_apply
+    # the span's own range on the device is an annotation, not a kernel
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.key != "moe_apply"]
     busy_ms = sum(_device_time_us(e) for e in kernels) / 1000.0
     by_name: dict[str, float] = {}
     for e in kernels:
@@ -2531,17 +2707,43 @@ def profile_train_step(step_fn, state, batch, step_ms: float) -> tuple[dict, obj
             events = json.load(f)["traceEvents"]
     spans = [(e["ts"], e["ts"] + e["dur"], e["tid"]) for e in events
              if e.get("cat") == "cpu_op" and e.get("name") == "autograd::engine::evaluate_function: _FlashAttentionBackward"]
+    moe_spans = [(e["ts"], e["ts"] + e["dur"], e["tid"]) for e in events
+                 if moe_groups and e.get("cat") == "cpu_op" and e.get("name") == "aten::bmm"
+                 and ((e.get("args") or {}).get("Input Dims") or [[0]])[0][:1] == [moe_groups]]
+    moe_fwd_spans = [(e["ts"], e["ts"] + e["dur"], e["tid"]) for e in events
+                     if e.get("cat") == "user_annotation" and e.get("name") == "moe_apply"]
     launches = {(e.get("args") or {}).get("correlation"): e for e in events
                 if e.get("cat") not in _DEVICE_CATS and e.get("ph") == "X" and "correlation" in (e.get("args") or {})}
-    fwd_us = bwd_us = 0.0
+
+    def by_thread(spans) -> dict:
+        out: dict = {}
+        for start, stop, tid in sorted(spans):
+            out.setdefault(tid, ([], []))[0].append(start)
+            out[tid][1].append(stop)
+        return out
+
+    def inside(launch, table) -> bool:
+        """Whether the launch lies in one of the (disjoint) spans on its thread."""
+        if launch is None or launch["tid"] not in table:
+            return False
+        starts, stops = table[launch["tid"]]
+        i = bisect.bisect_right(starts, launch["ts"]) - 1
+        return i >= 0 and launch["ts"] <= stops[i]
+
+    bwd_table, moe_table, moe_fwd_table = by_thread(spans), by_thread(moe_spans), by_thread(moe_fwd_spans)
+    fwd_us = bwd_us = moe_us = moe_fwd_us = 0.0
     for e in events:
         if e.get("cat") != "kernel":
             continue
         if "flash_attention" in e["name"]:
             fwd_us += e["dur"]
         launch = launches.get((e.get("args") or {}).get("correlation"))
-        if launch is not None and any(s <= launch["ts"] <= t and tid == launch["tid"] for s, t, tid in spans):
+        if inside(launch, bwd_table):
             bwd_us += e["dur"]
+        if inside(launch, moe_table):
+            moe_us += e["dur"]
+        if inside(launch, moe_fwd_table):
+            moe_fwd_us += e["dur"]
     summary = {
         "device_busy_ms": busy_ms or None,
         "unprofiled_step_ms": step_ms,
@@ -2554,6 +2756,11 @@ def profile_train_step(step_fn, state, batch, step_ms: float) -> tuple[dict, obj
         "attention_backward_ms": bwd_us / 1000.0 if spans else None,
         "attention_backward_share": bwd_us / 1000.0 / busy_ms if spans and busy_ms else None,
     }
+    if moe_groups:
+        summary.update(moe_dispatch_combine_bmm_calls=len(moe_spans), moe_dispatch_combine_ms=moe_us / 1000.0,
+                       moe_dispatch_combine_share=moe_us / 1000.0 / busy_ms if busy_ms else None,
+                       moe_apply_calls=len(moe_fwd_spans), moe_apply_forward_ms=moe_fwd_us / 1000.0,
+                       moe_apply_forward_share=moe_fwd_us / 1000.0 / busy_ms if busy_ms else None)
     if not busy_ms:
         print("profile: device time not measured (the profiler recorded no CUDA kernel time)")
     return summary, state
@@ -2627,6 +2834,165 @@ def attention_fwd_bwd_times(dev: torch.device) -> dict:
         f"{out['function_fwd_bwd_ms']:.3f} ms (its kernel forward {out['kernel_fwd_ms']:.3f}), SDPA "
         f"{out['sdpa_fwd_bwd_ms']:.3f} ms: {out['function_over_sdpa']:.2f} x SDPA"
     )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the rest of the LM stack (phases 36-39)
+# ---------------------------------------------------------------------------
+def flash_slice_shapes(dev: torch.device) -> dict[str, dict]:
+    """Phase 36: the flash kernel at the shapes and options the new models
+    launch, against ``mha_blocked`` on the same inputs at phase 8's
+    tolerances; the median ms of each (inputs rotated over two copies)
+    beside its bound and, where one call computes the same function,
+    ``F.scaled_dot_product_attention``'s ms (none with a soft-cap)."""
+    gen = torch.Generator(device=dev).manual_seed(36)
+    out = {}
+    for name, (b, hq, hkv, lq, lk, d), dtype, opts in FA_SLICE_CASES:
+        args = [tuple(_randn((b, h, length, d), gen, dev, dtype) for h, length in ((hq, lq), (hkv, lk), (hkv, lk)))
+                for _ in range(2)]
+        kernel = functools.partial(fa_ops.flash_attention, **opts)
+        plain = functools.partial(mha_blocked, **opts)
+        with torch.inference_mode():
+            got = kernel(*args[0])
+            want = plain(*args[0])
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            check(bool(torch.isfinite(got).all()), f"flash {name}: not finite")
+            check(torch.allclose(got.float(), want.float(), **FA_TOL[dtype]),
+                  f"flash vs plain {name} {(b, hq, hkv, lq, lk, d)} {dtype} {opts}: max abs err {err}")
+            del got, want
+            ms = time_ms(kernel, args)
+            plain_ms = time_ms(plain, args, warmup=1, n=3)
+            sdpa_ms = None
+            if opts.get("softcap") is None and opts.get("window") is None:
+                sdpa = functools.partial(F.scaled_dot_product_attention, is_causal=opts["causal"], enable_gqa=True)
+                sdpa_ms = time_ms(sdpa, args)
+        bound_ms, bound_by, n_bytes, n_ops, pairs = attention_bound(
+            b, hq, hkv, lq, lk, d, dtype, opts["causal"], opts.get("window"))
+        out[name] = dict(shape=[b, hq, hkv, lq, lk, d], dtype=str(dtype)[6:], options=opts, max_abs_err=err,
+                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=sdpa_ms)
+        print(
+            f"flash at {name} (B={b}, Hq={hq}, Hkv={hkv}, Lq={lq}, Lk={lk}, D={d}, {str(dtype)[6:]}, {opts}): "
+            f"max abs err {err:.3g} against mha_blocked; {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+            f"{'none (no single call with a soft-cap or window)' if sdpa_ms is None else f'{sdpa_ms:.4f} ms'}; "
+            f"bound {bound_ms:.4f} ms by {bound_by} ({n_bytes} bytes, {n_ops:.4g} flop over {pairs} live "
+            f"pairs a head), achieved {bound_ms / ms:.4f} of bound"
+        )
+        del args
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def record_routing():
+    """Every MoE router call's (probs, top-k experts), in call order, while
+    the context is open (``blocks._route`` wrapped)."""
+    calls: list[tuple[torch.Tensor, torch.Tensor]] = []
+    route = blocks._route
+
+    def recording(p, x, k):
+        probs, vals, idx = route(p, x, k)
+        calls.append((probs.detach().cpu(), idx.detach().cpu()))
+        return probs, vals, idx
+
+    blocks._route = recording
+    try:
+        yield calls
+    finally:
+        blocks._route = route
+
+
+def routing_differences(cpu_calls: list, card_calls: list, label: str) -> list[dict]:
+    """Each token whose ordered experts differ between the CPU's and the
+    card's router calls: (call, group, token, first slot that differs, the
+    gap between the CPU's probabilities at that place and the next).  Fails
+    unless each is a near-tie (gap <= ROUTE_TIE)."""
+    check(len(cpu_calls) == len(card_calls), f"{label}: {len(cpu_calls)} router calls on the cpu, {len(card_calls)} on the card")
+    out = []
+    for i, ((probs, want), (_, got)) in enumerate(zip(cpu_calls, card_calls)):
+        for g, t in (want != got).any(-1).nonzero().tolist():
+            slot = int((want[g, t] != got[g, t]).nonzero()[0])
+            ranked = probs[g, t].sort(descending=True).values
+            gap = float(ranked[slot] - ranked[slot + 1])
+            out.append(dict(call=i, group=g, token=t, slot=slot, gap=gap))
+            print(f"{label}: router call {i} group {g} token {t} differs from slot {slot}, gap {gap:.3g}")
+            check(gap <= ROUTE_TIE, f"{label}: a routing difference away from a near-tie (gap {gap} > {ROUTE_TIE})")
+    return out
+
+
+def slice_card_vs_cpu(dev: torch.device, arch: str) -> dict:
+    """Phase 37: ``arch`` at full width cut to SLICE_CHECK's layers, fp32
+    (TF32 off), the same weights (one ``init`` on the CPU, copied) and the
+    same B x L batch (whisper: and the pipeline's frames) on the card and
+    the CPU: the prefill's last-position logits within phase 10's limit,
+    and for the trained archs one step's loss and gradients at phase 31's.
+    Every MoE router call's experts are compared (``routing_differences``);
+    a dispatch group with a difference, allowed only at a near-tie, is left
+    out of the logits it feeds, and a step with one out of the gradients."""
+    cut, n_prefill, n_train = SLICE_CHECK[arch]
+    cfg = dataclasses.replace(get_config(arch), **cut, param_dtype="float32", compute_dtype="float32")
+    t0 = time.perf_counter()
+    cpu_model = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(37))
+    card_model = build_model(cfg, device=dev)
+    card_model.load_state_dict(cpu_model.state_dict())
+    data = SyntheticTokens(DataConfig(vocab=cfg.vocab, batch=CHECK_B, seq_len=CHECK_L, seed=37))
+    batch = data.batch(0)
+    if cfg.family == "encdec":
+        batch["frames"] = data.frames(0, cfg.enc_seq, cfg.d_model)
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
+
+    with record_routing() as cpu_routes:
+        want = make_prefill_step(cpu_model)(inputs)
+    reset_launch_counts()
+    with record_routing() as card_routes:
+        got = make_prefill_step(card_model)({k: v.to(dev) for k, v in inputs.items()}).cpu()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    expect = {**dict.fromkeys(counts, 0), "flash_attention": n_prefill}
+    check(counts == expect, f"{arch} card prefill launches {counts}, expected {expect}")
+    diffs = routing_differences(cpu_routes, card_routes, f"{arch} prefill")
+    rows = list(range(CHECK_B))
+    if cfg.family == "moe":  # the dispatch group of each row's last token
+        tokens = CHECK_B * CHECK_L
+        sg = cfg.router_group if tokens % cfg.router_group == 0 else math.gcd(tokens, cfg.router_group)
+        bad = {d["group"] for d in diffs}
+        rows = [r for r in rows if (r * CHECK_L + CHECK_L - 1) // sg not in bad]
+    check(bool(torch.isfinite(got).all()), f"{arch} card prefill logits not finite")
+    scale = float(want.abs().max())
+    err = float((got[rows] - want[rows]).abs().max()) if rows else float("nan")
+    check(not rows or err <= LM_CARD_VS_CPU_REL * scale,
+          f"{arch} card vs cpu prefill logits: max abs err {err} against {LM_CARD_VS_CPU_REL} x {scale}")
+    out = {"logits_rel_err": err / scale, "rows_held": len(rows), "routing_differences": diffs,
+           "router_calls": len(card_routes), "prefill_launches": counts}
+    line = (f"slice card vs cpu ({arch}, full width, {cut}, fp32, B={CHECK_B} L={CHECK_L}): last logits "
+            f"max abs err {err:.4g} of {scale:.4g} (relative {err / scale:.3g}, limit {LM_CARD_VS_CPU_REL}) "
+            f"over {len(rows)} of {CHECK_B} rows; router calls {len(card_routes)}, differences {len(diffs)}")
+    if n_train is not None:
+        with record_routing() as cpu_routes:
+            want_loss, want_grads = loss_and_grads(cpu_model, batch)
+        reset_launch_counts()
+        with record_routing() as card_routes:
+            loss, grads = loss_and_grads(card_model, batch)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        expect = {**dict.fromkeys(counts, 0), "flash_attention": n_train}
+        check(counts == expect, f"{arch} card step launches {counts}, expected {expect}")
+        tdiffs = routing_differences(cpu_routes, card_routes, f"{arch} training step")
+        out.update(train_launches=counts, train_routing_differences=tdiffs)
+        if tdiffs:
+            line += f"; training step: {len(tdiffs)} routing differences at near-ties, gradients not held"
+        else:
+            rel_loss, worst, worst_name = check_grads(arch, cpu_model, loss, grads, want_loss, want_grads)
+            out.update(loss_rel_err=rel_loss, grad_rel_err=worst, worst_grad=worst_name)
+            line += (f"; training step loss {float(loss):.6f} against {float(want_loss):.6f} (relative "
+                     f"{rel_loss:.3g}), worst gradient {worst_name} relative norm error {worst:.3g} (limits "
+                     f"{TRAIN_CARD_VS_CPU['loss_rtol']}, {TRAIN_CARD_VS_CPU['grad_rel']})")
+    out["seconds"] = time.perf_counter() - t0
+    print(line + f"; {out['seconds']:.1f} s")
+    del cpu_model, card_model
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2905,13 +3271,62 @@ def main() -> int:
     witness = loss_witness(dev, RWKV, SCAN_TRAIN_B)
     gc.collect()
     torch.cuda.empty_cache()
-    fp32_run = train_full(dev, RWKV, SCAN_TRAIN_B, SCAN_TRAIN_STEPS, rwkv_expect, dtype="float32")[0]
+    fp32_run = train_full(dev, RWKV, SCAN_TRAIN_B, WITNESS_FP32_STEPS, rwkv_expect, dtype="float32")[0]
     gc.collect()
     torch.cuda.empty_cache()
     scan_train[RWKV].update(witness=witness, fp32=fp32_run)
     check_witness(witness, scan_train[RWKV]["losses"], fp32_run["losses"])
     phase_s[34] = time.perf_counter() - lap
     print("lm training phases, host s: " + " ".join(f"{k}={phase_s[k]:.1f}" for k in range(30, 36)))
+
+    # --- 36. flash at the new models' shapes ---------------------------------------------------
+    lap = time.perf_counter()
+    slice_flash = flash_slice_shapes(dev)
+    phase_s[36] = time.perf_counter() - lap
+
+    # --- 37. the new models, card against CPU --------------------------------------------------
+    lap = time.perf_counter()
+    slice_checks = {arch: slice_card_vs_cpu(dev, arch) for arch in SLICE_CHECK}
+    phase_s[37] = time.perf_counter() - lap
+
+    # --- 38. serving the new models at full width ----------------------------------------------
+    lap = time.perf_counter()
+    slice_serve, slice_launches = {}, {}
+    for arch, (b, length, n_prefill, n_generate) in SLICE_SERVE.items():
+        none = dict.fromkeys(launch_counts(), 0)
+        slice_serve[arch], slice_launches[arch], model, prefill, batch = serve_lm(
+            dev, arch, {**none, "flash_attention": n_prefill}, b, length, {**none, "flash_attention": n_generate}
+        )
+        del model, prefill, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    init_over = slice_serve[QWEN_MOE]["init_peak_over_weights_bytes"]
+    check(init_over <= INIT_SLACK_BYTES, f"{QWEN_MOE} init peak {init_over} bytes over its weights")
+    phase_s[38] = time.perf_counter() - lap
+
+    # --- 39. granite-moe-3b-a800m and whisper-base training at full width and depth -------------
+    lap = time.perf_counter()
+    moe_train, model, step_fn, state, batch = train_full(
+        dev, GRANITE, TRAIN_B, MOE_TRAIN_STEPS, {"flash_attention": 2 * get_config(GRANITE).n_layers}
+    )
+    first, last = statistics.mean(moe_train["losses"][:5]), statistics.mean(moe_train["losses"][-5:])
+    check(last < first, f"{GRANITE} loss did not fall: first 5 mean {first}, last 5 mean {last}")
+    cfg = get_config(GRANITE)
+    moe_groups = TRAIN_B * TRAIN_L // cfg.router_group
+    moe_train["profile"], state = profile_train_step(step_fn, state, batch, moe_train["median_step_ms"], moe_groups)
+    print(json.dumps({"train_profile": {"arch": GRANITE, **moe_train["profile"]}}))
+    del model, step_fn, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    whisper = get_config(WHISPER)
+    whisper_train = train_full(
+        dev, WHISPER, WHISPER_TRAIN_B, WHISPER_TRAIN_STEPS,
+        {"flash_attention": 2 * (whisper.n_enc_layers + 2 * whisper.n_layers)}, seq_len=WHISPER_TRAIN_L,
+    )[0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s[39] = time.perf_counter() - lap
+    print("lm stack phases, host s: " + " ".join(f"{k}={phase_s[k]:.1f}" for k in range(36, 40)))
 
     metrics = {
         "env_steps_per_s": env_steps_per_s,
@@ -2933,9 +3348,24 @@ def main() -> int:
         "telemetry": telem,
         "annotations": annot,
         "lm_train": {TINY: tiny, **scan_train, "card_vs_cpu": step_checks, "resume": resume},
+        "lm_stack": {"flash": slice_flash, "card_vs_cpu": slice_checks, "serve": slice_serve,
+                     "train": {GRANITE: moe_train, WHISPER: whisper_train}},
         "phases_s": phase_s,
     }
     print(json.dumps({"metrics": metrics}))
+    # flash launches of each main path: the prefills (whisper's with its generate's encode) and the
+    # training steps
+    flash_paths = {
+        "prefill_zamba2": zamba_launches["flash_attention"],
+        "train_tinyllama": tiny["launches"]["flash_attention"],
+        "train_zamba2": scan_train[ZAMBA]["launches"]["flash_attention"],
+        "serve_moe": slice_launches[GRANITE]["flash_attention"] + slice_launches[QWEN_MOE]["flash_attention"],
+        "serve_gemma2": slice_launches[GEMMA]["flash_attention"],
+        "serve_whisper": slice_launches[WHISPER]["flash_attention"]
+        + slice_serve[WHISPER]["generate_launches"]["flash_attention"],
+        "train_moe": moe_train["launches"]["flash_attention"],
+        "train_whisper": whisper_train["launches"]["flash_attention"],
+    }
     kernels = [
         {
             "name": "chargax_step",
@@ -2970,16 +3400,12 @@ def main() -> int:
             "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
-            "launches": zamba_launches["flash_attention"] + tiny["launches"]["flash_attention"]
-            + scan_train[ZAMBA]["launches"]["flash_attention"],
-            "launches_by_path": {
-                "prefill_zamba2": zamba_launches["flash_attention"],
-                "train_tinyllama": tiny["launches"]["flash_attention"],
-                "train_zamba2": scan_train[ZAMBA]["launches"]["flash_attention"],
-            },
-            "max_abs_err": max(fa_err, grad_errs["flash_attention"]),
+            "launches": sum(flash_paths.values()),
+            "launches_by_path": flash_paths,
+            "max_abs_err": max(fa_err, grad_errs["flash_attention"], *(c["max_abs_err"] for c in slice_flash.values())),
             **lm_times["flash_attention"],
             "fwd_bwd": tiny["attention_fwd_bwd"],
+            "slice_shapes": slice_flash,
         },
         {
             "name": "mamba2_ssd",

@@ -1,29 +1,45 @@
-"""Architecture registry of the port: ``--arch <id>`` resolution.
+"""Architecture registry of the port: ``--arch <id>`` resolution, the JAX
+package's ``configs/registry.py`` for every architecture it lists.
 
-Only the architectures the port runs are listed.  Every other id of the JAX
-package's registry raises ``KeyError``: it is not yet ported.
+Each config module exposes ``full_config()`` (the published configuration)
+and ``smoke_config()`` (a reduced same-family configuration for CPU tests).
 """
 from __future__ import annotations
 
 import importlib
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.lm import CausalLM
 
-ARCH_IDS = ["zamba2-1.2b", "qwen3-4b", "chatglm3-6b", "tinyllama-1.1b", "chameleon-34b", "rwkv6-3b"]
+ARCH_IDS = [
+    "whisper-base",
+    "zamba2-1.2b",
+    "qwen3-moe-30b-a3b",
+    "granite-moe-3b-a800m",
+    "qwen3-4b",
+    "chatglm3-6b",
+    "tinyllama-1.1b",
+    "gemma2-9b",
+    "chameleon-34b",
+    "rwkv6-3b",
+]
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "p") for a in ARCH_IDS}
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     if arch not in _MODULES:
-        raise KeyError(f"arch {arch!r} is not yet ported; the port has {ARCH_IDS}")
+        raise KeyError(f"unknown arch {arch!r}; have {ARCH_IDS}")
     mod = importlib.import_module(_MODULES[arch])
     return mod.smoke_config() if smoke else mod.full_config()
 
 
-def build_model(cfg: ModelConfig, *, device=None):
-    """The model for ``cfg``, its parameters allocated (not initialised) on
-    ``device`` (``None`` means the card); fill them with ``.init(generator)``
-    or :func:`repro_torch.convert.lm_params_from_numpy`."""
+def build_model(cfg: ModelConfig, *, device=None) -> CausalLM | EncDecLM:
+    """The model for ``cfg`` (an ``EncDecLM`` for the encdec family, else a
+    ``CausalLM``), its parameters allocated (not initialised) on ``device``
+    (``None`` means the card); fill them with ``.init(generator)`` or
+    :func:`repro_torch.convert.lm_params_from_numpy`."""
+    if cfg.family == "encdec":
+        return EncDecLM(cfg, device=device)
     return CausalLM(cfg, device=device)

@@ -13,10 +13,12 @@ import numpy as np
 import torch
 
 from repro_torch.city.params import CityParams
+from repro_torch.configs.registry import build_model
 from repro_torch.core import fleet
 from repro_torch.core.state import EnvParams, EnvState, RewardWeights
 from repro_torch.distributed.train_step import TrainState
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.lm import CausalLM
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.rl.networks import ActorCritic
@@ -183,20 +185,28 @@ def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def lm_leaves_from_numpy(tree: Mapping[str, Any], model: CausalLM) -> dict[str, torch.Tensor]:
-    """A tree shaped as the JAX ``CausalLM.init`` tree (the params, or an
-    AdamW moment or compression residual tree over them; leaves as numpy
-    arrays) -> ``{name: tensor}`` by ``model``'s parameter names, on the CPU.
+# the JAX trees' stacked layer axes, unstacked in the port's names
+_STACKED = ("layers", "enc_layers", "dec_layers")
+
+
+def lm_leaves_from_numpy(tree: Mapping[str, Any], model: CausalLM | EncDecLM) -> dict[str, torch.Tensor]:
+    """A tree shaped as the JAX ``CausalLM.init`` or ``EncDecLM.init`` tree
+    (the params, or an AdamW moment or compression residual tree over them;
+    leaves as numpy arrays) -> ``{name: tensor}`` by ``model``'s parameter
+    names, on the CPU.
 
     Names match path for path; the JAX tree's leading layer axis of
-    ``layers`` is unstacked (``layers.<i>.…`` takes row ``i``).  Every leaf
-    of ``tree`` must be used, with the port's shape.
+    ``layers``, ``enc_layers`` and ``dec_layers`` is unstacked
+    (``layers.<i>.…`` takes row ``i``; gemma2's
+    ``layers.<i>.{local,global}.…`` row ``i`` of JAX's
+    ``layers.{local,global}.…``, whose axis counts the pairs).  Every leaf of
+    ``tree`` must be used, with the port's shape.
     """
     out, used = {}, set()
     for name, param in model.named_parameters():
         keys = name.split(".")
         index = None
-        if keys[0] == "layers":
+        if keys[0] in _STACKED:
             index, keys = int(keys[1]), [keys[0]] + keys[2:]
         leaf = tree
         for k in keys:
@@ -214,11 +224,12 @@ def lm_leaves_from_numpy(tree: Mapping[str, Any], model: CausalLM) -> dict[str, 
 
 def lm_params_from_numpy(
     tree: Mapping[str, Any], cfg: ModelConfig, *, device: torch.device | str | None = None
-) -> CausalLM:
-    """The JAX ``CausalLM.init`` tree (leaves as numpy arrays) -> the port's
-    model, by :func:`lm_leaves_from_numpy`.  Weights are ``(in, out)`` on
-    both sides; every leaf must have the port's dtype too."""
-    model = CausalLM(cfg, device=device)
+) -> CausalLM | EncDecLM:
+    """The JAX ``CausalLM.init`` or ``EncDecLM.init`` tree (leaves as numpy
+    arrays) -> the port's model for ``cfg``, by
+    :func:`lm_leaves_from_numpy`.  Weights are ``(in, out)`` on both sides;
+    every leaf must have the port's dtype too."""
+    model = build_model(cfg, device=device)
     with torch.no_grad():
         for name, value in lm_leaves_from_numpy(tree, model).items():
             param = model.get_parameter(name)
@@ -230,7 +241,7 @@ def lm_params_from_numpy(
 
 def train_state_from_numpy(
     state: Mapping[str, Any], cfg: ModelConfig, *, device: torch.device | str | None = None
-) -> tuple[CausalLM, TrainState]:
+) -> tuple[CausalLM | EncDecLM, TrainState]:
     """A JAX ``TrainState`` as ``{"params", "opt": {"step", "mu", "nu"},
     "error_feedback"}`` with numpy leaves -> the port's model holding those
     parameters and its ``TrainState`` (moments fp32, residuals fp32 or an

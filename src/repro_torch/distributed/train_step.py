@@ -65,9 +65,10 @@ def make_train_step(model, ts_cfg: TrainStepConfig) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     ``batch``: ``{"tokens", "labels"}``, each (B, L) int, on the model's
-    device.  ``metrics``: ``loss``, ``grad_norm``, ``nll``, ``z_loss``,
-    ``moe_aux`` as fp32 0-d tensors on the device (reading one waits for the
-    step) and ``lr`` as a float.  With ``num_microbatches`` n > 1 the batch
+    device, and for the encdec family ``"frames"`` (B, enc_seq, d).
+    ``metrics``: ``loss``, ``grad_norm``, ``nll``, ``z_loss``, ``moe_aux``
+    as fp32 0-d tensors on the device (reading one waits for the step) and
+    ``lr`` as a float.  With ``num_microbatches`` n > 1 the batch
     is cut into n along its first axis; each microbatch's gradient, divided
     by n, is summed in fp32, the loss is the microbatches' mean, the aux
     values are the last microbatch's, and the sum is cast back to each
@@ -77,7 +78,10 @@ def make_train_step(model, ts_cfg: TrainStepConfig) -> Callable:
     opt_cfg = AdamWConfig(weight_decay=ts_cfg.weight_decay, max_grad_norm=ts_cfg.max_grad_norm)
 
     def value_and_grad(params: dict[str, Tensor], batch: dict) -> tuple[Tensor, dict, list[Tensor]]:
-        loss, aux = model.loss(batch["tokens"], batch["labels"])
+        if model.cfg.family == "encdec":
+            loss, aux = model.loss(batch["tokens"], batch["labels"], batch["frames"])
+        else:
+            loss, aux = model.loss(batch["tokens"], batch["labels"])
         grads = torch.autograd.grad(loss, list(params.values()))
         return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
 
@@ -124,14 +128,20 @@ def make_serve_step(model) -> Callable:
 
 def make_prefill_step(model) -> Callable:
     """Full-sequence forward (no backward): ``prefill(batch) -> logits (B, V)``
-    fp32 at the last position of ``batch["tokens"]`` (B, L).
+    fp32 at the last position of ``batch["tokens"]`` (B, L); the encdec
+    family encodes ``batch["frames"]`` first.
 
     Returns only the last position's logits, what a serving prefill emits
-    before decode takes over; the (B, L, V) logits are never materialised."""
+    before decode takes over; the (B, L, V) logits are never materialised.
+    As the JAX step, it applies no final soft-cap (gemma2's logits are the
+    raw unembedding's here, capped in ``apply_train`` and ``decode_step``)."""
 
     @torch.inference_mode()
     def prefill(batch: dict) -> Tensor:
-        x = model.apply_hidden(batch["tokens"])
+        if model.cfg.family == "encdec":
+            x = model.decode_hidden(batch["tokens"], model.encode(batch["frames"]))
+        else:
+            x = model.apply_hidden(batch["tokens"])
         last = x[:, -1, :]
         return (last @ model.unembed_weight.to(last.dtype)).float()
 

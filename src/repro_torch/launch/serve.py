@@ -4,7 +4,8 @@
 
 runs a small batched generation end to end on the CPU; without ``--device``
 it runs on the card.  ``--arch`` takes any id of the port's registry, and
-defaults to tinyllama-1.1b, as the JAX launcher does.
+defaults to tinyllama-1.1b, as the JAX launcher does; whisper-base encodes
+random fp32 frames first.
 """
 from __future__ import annotations
 
@@ -20,15 +21,21 @@ Tensor = torch.Tensor
 
 
 @torch.inference_mode()
-def generate(model, prompts: Tensor, max_new_tokens: int = 32) -> Tensor:
+def generate(model, prompts: Tensor, max_new_tokens: int = 32, frames: Tensor | None = None) -> Tensor:
     """Greedy generation on the model's device: the prompt is fed through
     the decode path one token at a time (as the JAX ``generate`` does), then
-    ``max_new_tokens`` tokens are decoded.  Returns (B, P + max_new_tokens)
-    int32 token ids."""
+    ``max_new_tokens`` tokens are decoded.  The encdec family encodes
+    ``frames`` (B, enc_seq, d) once first, and its cache holds their
+    cross-attention keys and values.  Returns (B, P + max_new_tokens) int32
+    token ids."""
     b, p_len = prompts.shape
     total = p_len + max_new_tokens
     prompts = prompts.to(device=model.device, dtype=torch.int32)
-    cache = model.init_cache(b, total)
+    if model.cfg.family == "encdec":
+        enc_out = model.encode(frames.to(model.device))
+        cache = model.init_cache(b, total, enc_out)
+    else:
+        cache = model.init_cache(b, total)
 
     logits = None
     for t in range(p_len):
@@ -60,9 +67,12 @@ def main(argv=None) -> Tensor:
     prompts = torch.from_numpy(
         rng.integers(0, cfg.vocab, (args.batch, args.prompt_len), dtype=np.int32)
     )
+    frames = None
+    if cfg.family == "encdec":  # fp32 stub frame embeddings, as the JAX launcher draws
+        frames = torch.from_numpy(rng.standard_normal((args.batch, cfg.enc_seq, cfg.d_model), dtype=np.float32))
 
     t0 = time.perf_counter()
-    seqs = generate(model, prompts, args.new_tokens)
+    seqs = generate(model, prompts, args.new_tokens, frames)
     if seqs.is_cuda:
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0

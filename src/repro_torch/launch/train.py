@@ -93,7 +93,10 @@ def main(argv=None) -> float:
     times: list[float] = []
     loss = float("nan")
     for step in range(start_step, args.steps):
-        batch = {k: v.to(dev) for k, v in data.batch(step).items()}
+        batch = data.batch(step)
+        if cfg.family == "encdec":
+            batch["frames"] = data.frames(step, cfg.enc_seq, cfg.d_model)
+        batch = {k: v.to(dev) for k, v in batch.items()}
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch)
         loss = float(metrics["loss"])  # waits for the step, as JAX's block_until_ready

@@ -1,18 +1,25 @@
-"""Per-layer blocks zamba2 and rwkv6 run: GQA attention, the dense MLP,
-Mamba2 and RWKV6 (the JAX package's ``models/blocks.py``; MoE is not ported
-yet).
+"""Per-layer blocks: GQA attention (self and cross), the dense MLP, MoE,
+Mamba2 and RWKV6 (the JAX package's ``models/blocks.py``).
 
 Every block exposes ``init_*`` / ``*_train`` / ``*_decode``:
 
-  * train:  full-sequence causal pass, (B, L, d) -> (B, L, d);
+  * train:  full-sequence pass, (B, L, d) -> (B, L, d);
   * decode: single-token pass against an explicit cache dict,
             (B, 1, d), cache -> (B, 1, d), cache.
 
 Parameters are dicts of tensors (or anything indexable by name, such as the
 port's parameter tree modules) with the JAX package's names and ``(in, out)``
-weight layout.  Decode writes the caches in place.
+weight layout.  ``init_*`` return their random leaves as leaf makers
+(``modules.make_leaves``).  Decode writes the caches in place.
+
+Mixed dtypes are promoted as JAX promotes them: whisper's encoder runs on
+fp32 frames with bf16 weights, so its products, and the cross-attention of
+bf16 queries over its fp32 keys and values, are computed in fp32
+(``modules.matmul``, ``modules.einsum``, :func:`attn_train`).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -24,7 +31,9 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import (
     apply_rope,
     dense_param,
+    einsum,
     glu_act,
+    matmul,
     normal_param,
     rms_norm,
     softcap,
@@ -39,48 +48,66 @@ NEG_INF = -1e30
 # ===========================================================================
 # Attention (GQA + qk-norm + sliding window + softcap + RoPE variants)
 # ===========================================================================
-def init_attention(generator, cfg: ModelConfig, dtype) -> dict:
+def init_attention(generator, cfg: ModelConfig, dtype, cross: bool = False) -> dict:
+    """A cross-attention block (``cross``) has no q/k norm."""
     d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     p = {
-        "q_proj": dense_param(generator, d, h * hd, dtype),
-        "k_proj": dense_param(generator, d, hkv * hd, dtype),
-        "v_proj": dense_param(generator, d, hkv * hd, dtype),
-        "o_proj": dense_param(
+        "q_proj": lambda: dense_param(generator, d, h * hd, dtype),
+        "k_proj": lambda: dense_param(generator, d, hkv * hd, dtype),
+        "v_proj": lambda: dense_param(generator, d, hkv * hd, dtype),
+        "o_proj": lambda: dense_param(
             generator, h * hd, d, dtype, scale=(h * hd) ** -0.5 / (2 * cfg.n_layers) ** 0.5
         ),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = torch.ones((hd,), dtype=dtype)
         p["k_norm"] = torch.ones((hd,), dtype=dtype)
     return p
 
 
-def _qkv(p, cfg: ModelConfig, x: Tensor) -> tuple[Tensor, Tensor, Tensor]:
-    """Project and reshape to (B, H, L, hd) / (B, Hkv, L, hd)."""
+def _qkv(p, cfg: ModelConfig, x: Tensor, kv_x: Tensor | None = None) -> tuple[Tensor, Tensor, Tensor]:
+    """Project and reshape to (B, H, L, hd) / (B, Hkv, Lk, hd); keys and
+    values from ``kv_x`` when given (cross-attention, whose block has no
+    q/k norm)."""
     b, l, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p["q_proj"]).reshape(b, l, h, hd).transpose(1, 2)
-    k = (x @ p["k_proj"]).reshape(b, l, hkv, hd).transpose(1, 2)
-    v = (x @ p["v_proj"]).reshape(b, l, hkv, hd).transpose(1, 2)
-    if cfg.qk_norm:
+    src = x if kv_x is None else kv_x
+    lk = src.shape[1]
+    q = matmul(x, p["q_proj"]).reshape(b, l, h, hd).transpose(1, 2)
+    k = matmul(src, p["k_proj"]).reshape(b, lk, hkv, hd).transpose(1, 2)
+    v = matmul(src, p["v_proj"]).reshape(b, lk, hkv, hd).transpose(1, 2)
+    if cfg.qk_norm and kv_x is None:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     return q, k, v
 
 
-def attn_train(p, x: Tensor, cfg: ModelConfig, *, window: int | None = None) -> Tensor:
-    """Causal self-attention over the whole sequence, through flash attention."""
+def attn_train(
+    p, x: Tensor, cfg: ModelConfig, *, window: int | None = None, causal: bool = True,
+    positions: Tensor | None = None, kv_x: Tensor | None = None,
+) -> Tensor:
+    """Attention over the whole sequence through flash attention: causal
+    self-attention with RoPE by default; ``causal=False`` for an encoder;
+    cross-attention over ``kv_x`` (non-causal, no RoPE).
+
+    q, k and v are promoted to their common dtype and the output is cast
+    back to q's, which is what the JAX off-TPU path computes (fp32
+    throughout, returned in q's dtype): bf16 queries over fp32 keys run the
+    kernel's fp32 route."""
     b, l, _ = x.shape
-    q, k, v = _qkv(p, cfg, x)
-    pos = torch.arange(l, device=x.device)
-    q = apply_rope(q, pos, cfg.rope_theta, cfg.rope_mode).contiguous()
-    k = apply_rope(k, pos, cfg.rope_theta, cfg.rope_mode).contiguous()
+    q, k, v = _qkv(p, cfg, x, kv_x)
+    self_causal = causal and kv_x is None
+    if self_causal:
+        pos = torch.arange(l, device=x.device) if positions is None else positions
+        q = apply_rope(q, pos, cfg.rope_theta, cfg.rope_mode)
+        k = apply_rope(k, pos, cfg.rope_theta, cfg.rope_mode)
+    dtype = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
     out = flash_attention(
-        q, k, v.contiguous(), causal=True, window=window,
-        softcap=cfg.attn_softcap, scale=cfg.hd**-0.5,
+        q.to(dtype).contiguous(), k.to(dtype).contiguous(), v.to(dtype).contiguous(),
+        causal=self_causal, window=window, softcap=cfg.attn_softcap, scale=cfg.hd**-0.5,
     )
-    out = out.transpose(1, 2).reshape(b, l, -1)
-    return out @ p["o_proj"]
+    out = out.to(q.dtype).transpose(1, 2).reshape(b, l, -1)
+    return matmul(out, p["o_proj"])
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device=None) -> dict:
@@ -122,33 +149,137 @@ def attn_decode(
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgs,bhsd->bhgd", probs, v_cache.float())
     out = out.reshape(b, 1, h * hd).to(x_t.dtype)
-    return out @ p["o_proj"], cache
+    return matmul(out, p["o_proj"]), cache
 
 
 # ===========================================================================
-# Dense MLP (SwiGLU / GeGLU / plain GELU)
+# Dense MLP (SwiGLU / GeGLU / plain GELU for whisper)
 # ===========================================================================
 def init_mlp(generator, cfg: ModelConfig, dtype, d_ff: int | None = None) -> dict:
     d, ff = cfg.d_model, d_ff or cfg.d_ff
     down_scale = ff**-0.5 / (2 * cfg.n_layers) ** 0.5
     if cfg.act == "gelu":
         return {
-            "up_proj": dense_param(generator, d, ff, dtype),
-            "down_proj": dense_param(generator, ff, d, dtype, scale=down_scale),
+            "up_proj": lambda: dense_param(generator, d, ff, dtype),
+            "down_proj": lambda: dense_param(generator, ff, d, dtype, scale=down_scale),
         }
     return {
-        "gate_proj": dense_param(generator, d, ff, dtype),
-        "up_proj": dense_param(generator, d, ff, dtype),
-        "down_proj": dense_param(generator, ff, d, dtype, scale=down_scale),
+        "gate_proj": lambda: dense_param(generator, d, ff, dtype),
+        "up_proj": lambda: dense_param(generator, d, ff, dtype),
+        "down_proj": lambda: dense_param(generator, ff, d, dtype, scale=down_scale),
     }
 
 
 def mlp_apply(p, x: Tensor, cfg: ModelConfig) -> Tensor:
     if cfg.act == "gelu":
-        h = F.gelu(x @ p["up_proj"], approximate="tanh")
+        h = F.gelu(matmul(x, p["up_proj"]), approximate="tanh")
     else:
-        h = glu_act(x @ p["gate_proj"], x @ p["up_proj"], cfg.act)
-    return h @ p["down_proj"]
+        h = glu_act(matmul(x, p["gate_proj"]), matmul(x, p["up_proj"]), cfg.act)
+    return matmul(h, p["down_proj"])
+
+
+# ===========================================================================
+# MoE (top-k, GShard-style grouped one-hot dispatch)
+# ===========================================================================
+def init_moe(generator, cfg: ModelConfig, dtype) -> dict:
+    d, e, ff = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+    std_in, std_out = d**-0.5, ff**-0.5 / (2 * cfg.n_layers) ** 0.5
+
+    def tn(shape, std):
+        return lambda: normal_param(generator, shape, truncated=True).mul_(std).to(dtype)
+
+    return {
+        "router": lambda: dense_param(generator, d, e, torch.float32),  # router in fp32
+        "expert_w_gate": tn((e, d, ff), std_in),
+        "expert_w_up": tn((e, d, ff), std_in),
+        "expert_w_down": tn((e, ff, d), std_out),
+    }
+
+
+def _top_k(probs: Tensor, k: int) -> tuple[Tensor, Tensor]:
+    """``jax.lax.top_k``: the k largest along the last axis, largest first,
+    a tie going to the lower index.  A stable descending sort gives that
+    order; ``torch.topk`` promises none among ties."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _route(p, x: Tensor, k: int) -> tuple[Tensor, Tensor, Tensor]:
+    """The fp32 router: (probs, renormalised top-k probs, top-k experts)."""
+    probs = torch.softmax(x.float() @ p["router"], dim=-1)
+    top_vals, top_idx = _top_k(probs, k)
+    return probs, top_vals / top_vals.sum(-1, keepdim=True).clamp_min(1e-9), top_idx
+
+
+def moe_apply(p, x: Tensor, cfg: ModelConfig) -> tuple[Tensor, Tensor]:
+    """Returns (y, aux_loss).  x: (B, L, d).
+
+    Tokens are cut into groups of ``router_group`` (or the gcd with the
+    token count) with ``cap`` slots per expert and group; the k slots are
+    filled in turn, slot 0 first, each in token order, and a token over an
+    expert's capacity is dropped from it.  ``dispatch`` (0/1) and
+    ``combine`` (the renormalised router probability) are (g, sg, E, cap),
+    in bf16 when x is; ``combine`` is ``dispatch`` times each token's gate
+    for the expert, which is the JAX sum over slots element for element
+    (a token picks an expert in at most one slot).  The aux loss is the
+    Switch load-balance loss of slot 0.  The JAX function's sharding
+    annotations (``constrain``: token groups over the data axes, experts
+    over the model axis) have no counterpart on one card and are left out.
+    """
+    b, l, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    tokens = b * l
+    sg = cfg.router_group if tokens % cfg.router_group == 0 else math.gcd(tokens, cfg.router_group)
+    g = tokens // sg
+    cap = max(int(sg * k * cfg.capacity_factor / e), 1)
+
+    xg = x.reshape(g, sg, d)
+    probs, top_vals, top_idx = _route(p, xg, k)  # (g, sg, e), (g, sg, k) x 2
+
+    # slot-sequential dispatch: earlier slots get capacity priority
+    f32 = torch.float32
+    slots = torch.arange(cap, device=x.device)
+    counts = torch.zeros((g, e), dtype=f32, device=x.device)
+    dispatch = torch.zeros((g, sg, e, cap), dtype=f32, device=x.device)
+    gate = torch.zeros((g, sg, e), dtype=f32, device=x.device)
+    for j in range(k):
+        onehot = F.one_hot(top_idx[..., j], e).to(f32)  # (g, sg, e)
+        pos = counts[:, None, :] + torch.cumsum(onehot, dim=1) - onehot  # rank
+        keep = (pos < cap) * onehot
+        dispatch = dispatch + keep[..., None] * (pos[..., None] == slots)  # one-hot of pos, none past cap
+        gate = gate + onehot * top_vals[..., j : j + 1]
+        counts = counts + onehot.sum(dim=1)
+
+    cd = torch.bfloat16 if x.dtype == torch.bfloat16 else f32
+    combine = (dispatch * gate[..., None]).to(cd)
+    dispatch = dispatch.to(cd)
+    expert_in = einsum("gsec,gsd->egcd", dispatch, xg.to(cd))  # (e, g, cap, d)
+    h = glu_act(
+        einsum("egcd,edf->egcf", expert_in, p["expert_w_gate"]),
+        einsum("egcd,edf->egcf", expert_in, p["expert_w_up"]),
+        "swiglu",
+    )
+    expert_out = einsum("egcf,efd->egcd", h, p["expert_w_down"])
+    y = einsum("gsec,egcd->gsd", combine, expert_out)
+
+    # Switch-style load-balance aux loss
+    frac_tokens = F.one_hot(top_idx[..., 0], e).to(f32).mean(dim=(0, 1))
+    frac_probs = probs.mean(dim=(0, 1))
+    aux = e * (frac_tokens * frac_probs).sum()
+    return y.reshape(b, l, d).to(x.dtype), aux
+
+
+def moe_decode(p, x_t: Tensor, cfg: ModelConfig) -> Tensor:
+    """Single-token MoE: a dense gather of the top-k experts' weights (tiny
+    batch; no dispatch tensors).  x_t: (B, 1, d)."""
+    _, top_vals, top_idx = _route(p, x_t, cfg.top_k)  # (b, 1, k)
+    idx = top_idx[:, 0]  # (b, k)
+    wg, wu, wd = (p[name][idx] for name in ("expert_w_gate", "expert_w_up", "expert_w_down"))
+    xt = x_t[:, 0]  # (b, d)
+    h = glu_act(einsum("bd,bkdf->bkf", xt, wg), einsum("bd,bkdf->bkf", xt, wu), "swiglu")
+    y = einsum("bkf,bkfd->bkd", h, wd)
+    y = einsum("bkd,bk->bd", y, top_vals[:, 0].to(y.dtype))
+    return y[:, None].to(x_t.dtype)
 
 
 # ===========================================================================
@@ -166,15 +297,16 @@ def init_mamba2(generator, cfg: ModelConfig, dtype) -> dict:
     d_inner, nh, conv_dim = _mamba_dims(cfg)
     proj_out = 2 * d_inner + 2 * cfg.ssm_state + nh  # z, x, B, C, dt
     f32 = torch.float32
-    conv = normal_param(generator, (cfg.ssm_conv, conv_dim), truncated=False)
-    return {
-        "ssm_in_proj": dense_param(generator, d, proj_out, dtype),
-        "ssm_conv": (conv * 0.1).to(dtype),
+    return {  # the conv kernel is drawn first
+        "ssm_conv": lambda: (
+            normal_param(generator, (cfg.ssm_conv, conv_dim), truncated=False).mul_(0.1).to(dtype)
+        ),
+        "ssm_in_proj": lambda: dense_param(generator, d, proj_out, dtype),
         "ssm_dt_bias": torch.zeros((nh,), dtype=f32),
         "ssm_a_log": torch.log(torch.linspace(1.0, 16.0, nh, dtype=f32)),
         "ssm_d_skip": torch.ones((nh,), dtype=f32),
         "ssm_norm": torch.ones((d_inner,), dtype=dtype),
-        "ssm_out_proj": dense_param(
+        "ssm_out_proj": lambda: dense_param(
             generator, d_inner, d, dtype, scale=d_inner**-0.5 / (2 * cfg.n_layers) ** 0.5
         ),
     }
@@ -270,8 +402,8 @@ def init_rwkv6(generator, cfg: ModelConfig, dtype) -> dict:
     dw = max(d // 16, 32)  # decay-LoRA rank
     f32 = torch.float32
 
-    def mix() -> Tensor:
-        return uniform_param(generator, (d,)) * 0.5
+    def mix():
+        return lambda: uniform_param(generator, (d,)).mul_(0.5)
 
     return {
         "tm_mix_r": mix(),
@@ -279,24 +411,24 @@ def init_rwkv6(generator, cfg: ModelConfig, dtype) -> dict:
         "tm_mix_v": mix(),
         "tm_mix_w": mix(),
         "tm_mix_g": mix(),
-        "r_proj": dense_param(generator, d, d, dtype),
-        "k_proj": dense_param(generator, d, d, dtype),
-        "v_proj": dense_param(generator, d, d, dtype),
-        "g_proj": dense_param(generator, d, d, dtype),
-        "o_proj": dense_param(generator, d, d, dtype, scale=d**-0.5 / (2 * cfg.n_layers) ** 0.5),
+        "r_proj": lambda: dense_param(generator, d, d, dtype),
+        "k_proj": lambda: dense_param(generator, d, d, dtype),
+        "v_proj": lambda: dense_param(generator, d, d, dtype),
+        "g_proj": lambda: dense_param(generator, d, d, dtype),
+        "o_proj": lambda: dense_param(generator, d, d, dtype, scale=d**-0.5 / (2 * cfg.n_layers) ** 0.5),
         "w_base": torch.full((d,), -4.0, dtype=f32),  # decay bias (w = exp(-exp(.)))
-        "w_lora_a": dense_param(generator, d, dw, f32),
-        "w_lora_b": dense_param(generator, dw, d, f32) * 0.1,
-        "u_bonus": normal_param(generator, (nh, hd), truncated=False) * 0.3,
+        "w_lora_a": lambda: dense_param(generator, d, dw, f32),
+        "w_lora_b": lambda: dense_param(generator, dw, d, f32).mul_(0.1),
+        "u_bonus": lambda: normal_param(generator, (nh, hd), truncated=False).mul_(0.3),
         "wkv_norm": torch.ones((d,), dtype=dtype),
         # channel mix
         "cm_mix_k": mix(),
         "cm_mix_r": mix(),
-        "cm_k_proj": dense_param(generator, d, ff, dtype),
-        "cm_v_proj": dense_param(
+        "cm_k_proj": lambda: dense_param(generator, d, ff, dtype),
+        "cm_v_proj": lambda: dense_param(
             generator, ff, d, dtype, scale=ff**-0.5 / (2 * cfg.n_layers) ** 0.5
         ),
-        "cm_r_proj": dense_param(generator, d, d, dtype),
+        "cm_r_proj": lambda: dense_param(generator, d, d, dtype),
     }
 
 

@@ -27,8 +27,10 @@ from repro_torch.configs import registry
 from repro_torch.distributed.train_step import make_prefill_step, make_serve_step
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
-from repro_torch.launch import serve
-from repro_torch.models.lm import CausalLM
+from repro_torch.launch import serve, train
+from repro_torch.models.encdec import EncDecLM
+from repro_torch.models.lm import CausalLM, ParamTree
+from repro_torch.models.modules import materialize
 
 ARCH = "zamba2-1.2b"
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -141,19 +143,23 @@ def test_port_decode_matches_its_own_teacher_forced_logits():
 
 
 def _jax_tree_spec(cfg) -> dict[str, tuple[tuple[int, ...], str]]:
-    """The JAX init tree's leaves by the port's names (layer axis unstacked),
-    from ``jax.eval_shape``: nothing is allocated."""
+    """The JAX init tree's leaves by the port's names (stacked layer axes
+    unstacked), from ``jax.eval_shape``: nothing is allocated."""
     shapes = jax.eval_shape(jax_registry.build_model(cfg).init, jax.random.key(0))
     spec = {}
     for path, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]:
         keys = [p.key for p in path]
-        if keys[0] == "layers":
+        if keys[0] in ("layers", "enc_layers", "dec_layers"):
             for i in range(leaf.shape[0]):
-                name = ".".join(["layers", str(i)] + keys[1:])
+                name = ".".join([keys[0], str(i)] + keys[1:])
                 spec[name] = (tuple(leaf.shape[1:]), str(leaf.dtype))
         else:
             spec[".".join(keys)] = (tuple(leaf.shape), str(leaf.dtype))
     return spec
+
+
+def _port_tree_spec(model) -> dict[str, tuple[tuple[int, ...], str]]:
+    return {name: (tuple(p.shape), str(p.dtype).removeprefix("torch.")) for name, p in model.named_parameters()}
 
 
 @pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
@@ -161,14 +167,44 @@ def test_init_tree_has_jax_names_shapes_and_dtypes(smoke):
     cfg = jax_registry.get_config(ARCH, smoke=smoke)
     want = _jax_tree_spec(cfg)
     model = CausalLM(registry.get_config(ARCH, smoke=smoke), device="meta")
-    got = {
-        name: (tuple(p.shape), str(p.dtype).removeprefix("torch."))
-        for name, p in model.named_parameters()
-    }
-    assert got == want
+    assert _port_tree_spec(model) == want
     if not smoke:
         assert len(model.groups) == 7 and model.groups[-1] == (36, 38)
         assert sum(p.numel() for p in model.parameters()) > 1.0e9
+
+
+# parameters of the JAX init trees of the full configs (jax.eval_shape)
+FULL_PARAMS = {
+    "granite-moe-3b-a800m": 3_298_793_472,
+    "qwen3-moe-30b-a3b": 30_532_122_624,
+    "gemma2-9b": 9_241_705_984,
+    "whisper-base": 70_627_840,
+}
+
+
+@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
+@pytest.mark.parametrize("arch", list(FULL_PARAMS))
+def test_new_archs_trees_have_jax_names_shapes_and_dtypes(arch, smoke):
+    want = _jax_tree_spec(jax_registry.get_config(arch, smoke=smoke))
+    model = registry.build_model(registry.get_config(arch, smoke=smoke), device="meta")
+    assert isinstance(model, EncDecLM if arch == "whisper-base" else CausalLM)
+    assert _port_tree_spec(model) == want
+    if not smoke:
+        assert sum(p.numel() for p in model.parameters()) == FULL_PARAMS[arch]
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-3b", "granite-moe-3b-a800m", "gemma2-9b", "qwen3-moe-30b-a3b"])
+def test_init_draws_leaf_by_leaf_the_whole_trees_weights(arch):
+    """``init`` makes, copies and frees one leaf at a time, in the order
+    the whole tree is drawn in, so a seed gives the same weights as
+    drawing the whole tree at once."""
+    model = CausalLM(registry.get_config(arch, smoke=True), device="cpu").init(torch.Generator().manual_seed(0))
+    whole = ParamTree(materialize(model._tree(torch.Generator().manual_seed(0))))
+    got, want = dict(model.named_parameters()), dict(whole.named_parameters())
+    assert got.keys() == want.keys()
+    assert all(torch.equal(got[k], want[k]) for k in got)
+    again = CausalLM(model.cfg, device="cpu").init(torch.Generator().manual_seed(1))
+    assert not torch.equal(again.embed, model.embed)
 
 
 def test_init_draws_the_jax_distributions():
@@ -190,24 +226,37 @@ def test_init_draws_the_jax_distributions():
     assert all(torch.equal(a, b) for a, b in zip(model.parameters(), again.parameters()))
 
 
-def test_registry_holds_the_jax_configs_and_refuses_the_rest():
+@pytest.mark.parametrize("arch", jax_registry.ARCH_IDS)
+def test_registry_holds_the_jax_configs_and_refuses_the_rest(arch):
+    assert registry.ARCH_IDS == jax_registry.ARCH_IDS
     for smoke in (True, False):
-        want = dataclasses.asdict(jax_registry.get_config(ARCH, smoke=smoke))
-        assert dataclasses.asdict(registry.get_config(ARCH, smoke=smoke)) == want
-    for arch in jax_registry.ARCH_IDS:
-        if arch not in registry.ARCH_IDS:
-            with pytest.raises(KeyError, match="not yet ported"):
-                registry.get_config(arch)
-    with pytest.raises(ValueError, match="not yet ported"):
-        CausalLM(jax_registry.get_config("granite-moe-3b-a800m", smoke=True), device="meta")
+        want = dataclasses.asdict(jax_registry.get_config(arch, smoke=smoke))
+        assert dataclasses.asdict(registry.get_config(arch, smoke=smoke)) == want
+    with pytest.raises(KeyError, match="unknown arch"):
+        registry.get_config(arch + "-x")
 
 
-def test_lm_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
+def test_lm_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = registry.get_config(ARCH, smoke=True)
+    whisper = registry.get_config("whisper-base", smoke=True)
+    for c in (cfg, whisper):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            registry.build_model(c)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        registry.build_model(cfg)
+        EncDecLM(whisper)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--smoke", "--new-tokens", "1"])
     seqs = serve.main(["--smoke", "--device", "cpu", "--batch", "2", "--prompt-len", "4", "--new-tokens", "3"])
     assert seqs.shape == (2, 7) and bool(((seqs >= 0) & (seqs < cfg.vocab)).all())
+    whisper_args = ["--arch", "whisper-base", "--smoke", "--batch", "2", "--prompt-len", "4", "--new-tokens", "3"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(whisper_args)
+    seqs = serve.main(whisper_args + ["--device", "cpu"])
+    assert seqs.shape == (2, 7) and bool(((seqs >= 0) & (seqs < whisper.vocab)).all())
+    train_args = ["--arch", "whisper-base", "--smoke", "--steps", "2", "--batch", "2", "--seq-len", "16",
+                  "--ckpt-dir", str(tmp_path / "ck")]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(train_args)
+    loss = train.main(train_args + ["--device", "cpu"])
+    assert np.isfinite(loss)

@@ -106,12 +106,6 @@ def test_dense_logits_and_decode_match_jax(arch):
         np.testing.assert_allclose(cache[k].numpy(), np.asarray(jcache[k]), err_msg=k, **TOL)
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "granite-moe-3b-a800m"])
-def test_gemma2_and_moe_are_refused(arch):
-    with pytest.raises(ValueError, match="not yet ported"):
-        CausalLM(jax_registry.get_config(arch, smoke=True), device="meta")
-
-
 # ---------------------------------------------------------------------------
 # the loss and its gradients
 # ---------------------------------------------------------------------------

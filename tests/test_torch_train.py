@@ -263,7 +263,24 @@ def _leaves(ckpt: Path, step: int) -> dict[str, bytes]:
 
 
 def test_trainer_resume_is_bit_exact(tmp_path, capsys):
-    common = SMOKE + ["--ckpt-every", "3", "--log-every", "1"]
+    _resume_is_bit_exact(SMOKE, tmp_path, capsys)
+
+
+@pytest.mark.parametrize(
+    "arch,key", [("gemma2-9b", "layers.1.global.attn.q_proj"), ("granite-moe-3b-a800m", "layers.1.moe.router"),
+                 ("whisper-base", "dec_layers.1.cross.k_proj")],
+)
+def test_trainer_resume_is_bit_exact_for_pairs_experts_and_encdec(arch, key, tmp_path, capsys):
+    """The checkpoint keys of gemma2's pairs, the experts and whisper's two
+    stacks (``.params['layers.1.global.attn.q_proj']``, ...) round-trip."""
+    args = ["--arch", arch] + SMOKE[2:]
+    _resume_is_bit_exact(args, tmp_path, capsys)
+    manifest = json.loads((tmp_path / "a" / "step_0000000006" / "manifest.json").read_text())
+    assert f".params['{key}']" in manifest["leaves"] and f".opt.mu['{key}']" in manifest["leaves"]
+
+
+def _resume_is_bit_exact(args: list[str], tmp_path, capsys) -> None:
+    common = args + ["--ckpt-every", "3", "--log-every", "1"]
     straight = train.main(common + ["--steps", "6", "--ckpt-dir", str(tmp_path / "a")])
     direct = _losses(capsys.readouterr().out)
     train.main(common + ["--steps", "3", "--ckpt-dir", str(tmp_path / "b")])
