@@ -203,7 +203,7 @@ Phases, in order (any failure raises and the script exits non-zero):
    checkpoint's leaves bit-identical; a run sent SIGTERM after its 2nd step
    exits 0 with a checkpoint;
 33. tinyllama-1.1b training at full width and depth (22 layers, bf16
-   parameters, fp32 moments, B 8 x L 2048 synthetic tokens, lr 1e-3, 30
+   parameters, fp32 moments, B 8 x L 2048 synthetic tokens, lr 1e-3, 20
    steps from ``init`` seed 0) through ``make_train_step``, CUDA events
    around each step and every kernel count reset just before it: exactly 44
    flash launches a step (22 layers, each forward run again by its remat
@@ -266,13 +266,40 @@ Phases, in order (any failure raises and the script exits non-zero):
    tokens/s, peak memory, the MoE aux loss a step; one step under
    ``torch.profiler`` with the share of the MoE dispatch/combine einsums
    and of the plain attention backward; then whisper-base (B 8 x 448 tokens
-   with 1500 frames, 10 steps): exactly 36 flash launches a step.
+   with 1500 frames, 10 steps): exactly 36 flash launches a step;
+40. the sharded path at world 1: an NCCL group of this one process
+   (``file://`` store in a temporary directory); 2 PPO updates at phase
+   20's shape (paper_16, fused step, 16384 envs x 300 steps, 4 x 4
+   minibatches) through ``make_train(shard_envs=make_shard_envs())``
+   against the unsharded ``make_train`` from the same seed, update by
+   update in turns (plain first, then sharded first): exactly 300
+   ``chargax_step`` launches an update each, every parameter within 1e-4
+   of its norm after each update (of the order of phase 31's gradients; the
+   update's own change printed beside it), each update's rollout / learn ms for both and the
+   all-reduces' count and ms (CUDA events around each); then one 288-step episode of phase 26's fleet
+   (5461 fleets) with ``FleetEnv(shard=True)`` under the group against
+   ``shard=False`` from the same seed, rewards within rtol 1e-4 / atol 2e-4
+   (EQ5), exactly 576 launches; the group is destroyed;
+41. the Gymnasium bridge: where ``import gymnasium`` succeeds, one 288-step
+   paper_16 episode through ``GymnasiumBridge`` on the card held to the JAX
+   package's smoke contract (a ``gymnasium.Env``, observations in their
+   space, float rewards, never terminated, exactly one truncation, a reset
+   after it; 288 launches); where it fails, one line saying the phase did
+   not run (never a pass);
+42. the roofline against the card: ``analysis.roofline.analyze_cell``
+   (counted on the meta device, on the host) for tinyllama-1.1b and
+   granite-moe-3b-a800m training at 8 x 2048 and zamba2-1.2b and rwkv6-3b
+   prefill at 4 x 4096, each beside its measured median from phases 33,
+   39, 11 and 16: the roofline step, its bottleneck, measured over
+   roofline, and the model-FLOP share ``model_flops / (measured_s x 989e12)``,
+   the card's name and power limit on every line.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and before that a ``{"kernels": [...]}``
 line with all four kernels (``chargax_step``'s launches summed over the
 episode of phase 4, the training of phases 20 and 23, the sweep of phase 24,
-the fleet phases 25-27 and the telemetry phase 28, by path, with the fleet
+the fleet phases 25-27, the telemetry phase 28, the sharded phase 40 and
+the bridge of phase 41, by path, with the fleet
 route's pack times; each LM kernel's launches summed over its prefill and
 its training steps of phases 33-34 and 38-39, by path; flash also with
 phase 36's shapes).  Needs the repository's
@@ -305,12 +332,15 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.analysis import roofline  # noqa: E402
 from repro_torch.configs.registry import build_model, get_config  # noqa: E402
 from repro_torch import city, scenarios  # noqa: E402
 from repro_torch.core import ChargaxEnv, EnvConfig, FleetEnv, sampling, transition  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens  # noqa: E402
+from repro_torch.distributed import make_shard_envs  # noqa: E402
 from repro_torch.distributed.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.distributed.train_step import (  # noqa: E402
     TrainStepConfig,
@@ -332,6 +362,7 @@ from repro_torch.kernels.rwkv6_wkv.ref import wkv_chunked  # noqa: E402
 from repro_torch.launch import rl_train  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import blocks  # noqa: E402
+from repro_torch.models.config import ShapeConfig  # noqa: E402
 from repro_torch.models.modules import DTYPES  # noqa: E402
 from repro_torch.optim import cosine_warmup_schedule  # noqa: E402
 from repro_torch.rl import (  # noqa: E402
@@ -356,11 +387,6 @@ from repro_torch.utils import replace  # noqa: E402
 PEAK_HBM_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
 PEAK_BF16_OPS_PER_S = 989e12
-# float operations of one chargax_step per pole (counted from
-# csrc/chargax_step.cu: three charge-rate curves, bounds, clip, curtail and
-# the integrator) and per pole and node (the Eq. 5 load and scale)
-OPS_PER_POLE = 75
-OPS_PER_POLE_NODE = 6
 TOL = dict(rtol=1e-4, atol=2e-4)  # the JAX package's own kernel tolerance
 NUM_ENVS = 16384
 SERVE_BATCH = 131072
@@ -434,11 +460,12 @@ CITY_ARCHS = ("paper_16", "deep_4x4", "single_dc_8", "paper_16")
 CITY_SCENARIO = "city_ring_evening"
 CITY_CANDIDATES = 4096
 # LM training (phases 30-35): tinyllama-1.1b (arXiv:2401.02385) at B 8 x its
-# 2048-token context, 30 steps at the JAX trainer test's lr 1e-3 with the
-# default 100-step warmup; zamba2-1.2b and rwkv6-3b at B 2 (rwkv6-3b's
+# 2048-token context, 20 steps (30 until phases 40-42 needed the time) at the
+# JAX trainer test's lr 1e-3 with the default 100-step warmup; zamba2-1.2b
+# and rwkv6-3b at B 2 (rwkv6-3b's
 # weights, gradients and fp32 moments take ~37 GB before activations)
 TINY = "tinyllama-1.1b"
-TRAIN_B, TRAIN_L, TRAIN_STEPS, TRAIN_LR = 8, 2048, 30, 1e-3
+TRAIN_B, TRAIN_L, TRAIN_STEPS, TRAIN_LR = 8, 2048, 20, 1e-3
 SCAN_TRAIN_B, SCAN_TRAIN_STEPS = 2, 5
 WITNESS_FP32_STEPS = 3  # rwkv6-3b's fp32 witness: the first 3 of its 5 steps (their rise shows by step 3)
 CHECK_B, CHECK_L = 2, 256  # phase 31's card-against-CPU batch
@@ -482,6 +509,24 @@ INIT_SLACK_BYTES = 2e9  # qwen3-moe-30b-a3b's init may take this much over its 6
 # with 1500 frames, 10 steps
 MOE_TRAIN_STEPS = 12
 WHISPER_TRAIN_B, WHISPER_TRAIN_L, WHISPER_TRAIN_STEPS = 8, 448, 10
+# phase 40: the sharded path at world 1 (an NCCL group of this process):
+# SHARD_UPDATES PPO updates of phase 20's shape from one seed, sharded and
+# not, in turns (plain first, then sharded first), every parameter after
+# each update within SHARD_PARAM_TOL of its norm (of the order of phase 31's
+# card-against-CPU gradients, within 1.3e-4 of their norm; the sharded
+# update on the unsharded run's own trajectory came within 3.1e-7 on an
+# H100), each update's change and its elements outside phase 19's
+# atol 2e-6 + rtol 1e-3 printed beside it; one episode of phase 26's fleet
+# sharded and not, rewards within TOL (EQ5)
+SHARD_UPDATES = 2
+SHARD_PARAM_TOL = 1e-4
+# phase 42: the cells the script times, with the phase that measured each
+ROOFLINE_CELLS = [
+    (TINY, ShapeConfig("train_8x2048", TRAIN_L, TRAIN_B, "train"), 33),
+    (GRANITE, ShapeConfig("train_8x2048", TRAIN_L, TRAIN_B, "train"), 39),
+    (ZAMBA, ShapeConfig("prefill_4x4096", PREFILL_L, PREFILL_B, "prefill"), 11),
+    (RWKV, ShapeConfig("prefill_4x4096", PREFILL_L, PREFILL_B, "prefill"), 16),
+]
 # (b, hq, hkv, l, d): GQA at 512, D = 128 with a ragged L, tinyllama's
 # training shape; fp32 on the CUDA-core route
 FA_GRAD_SHAPES = [((2, 8, 2, 512, 64), torch.bfloat16), ((1, 4, 4, 300, 128), torch.bfloat16),
@@ -1004,35 +1049,21 @@ def fresh_cache(model, b: int, max_len: int, frames: torch.Tensor | None) -> dic
 
 def attention_bound(b: int, hq: int, hkv: int, lq: int, lk: int, d: int, dtype: torch.dtype,
                     causal: bool, window: int | None) -> tuple[float, str, int, float, int]:
-    """Least time of one attention call on the card: q, k, v read once and
-    o written once, against QK^T and PV over the (row, col) pairs the masks
-    leave live (the diagonal's triangle, the window's band; the queries at
-    the end of the kv axis) at the peak of the inputs' type: the bf16 tensor
-    cores, or fp32 outside them.  Returns (ms, what bounds it, bytes,
-    operations, live pairs per head)."""
-    elem = torch.tensor([], dtype=dtype).element_size()
-    n_bytes = elem * (2 * b * hq * lq * d + 2 * b * hkv * lk * d)
-    rows = np.arange(lq, dtype=np.int64) + (lk - lq)
-    first = np.zeros(lq, dtype=np.int64) if window is None else np.maximum(rows - window + 1, 0)
-    last = np.minimum(rows, lk - 1) if causal else np.full(lq, lk - 1, dtype=np.int64)
-    pairs = int(np.maximum(last - first + 1, 0).sum())
-    n_ops = 4.0 * b * hq * d * pairs
+    """Least time of one attention call on the card: its work
+    (``fa_ops.work``: q, k, v read once and o written once, against QK^T and
+    PV over the live pairs, the queries at the end of the kv axis) at the
+    peak of the inputs' type: the bf16 tensor cores, or fp32 outside them.
+    Returns (ms, what bounds it, bytes, operations, live pairs per head)."""
+    w = fa_ops.work(b, hq, hkv, lq, lk, d, dtype, causal, window)
     peak = PEAK_BF16_OPS_PER_S if dtype == torch.bfloat16 else PEAK_FP32_OPS_PER_S
-    return (*_bound(n_bytes, n_ops, peak), pairs)
+    return (*_bound(w.bytes, w.ops, peak), fa_ops.live_pairs(lq, lk, causal, window))
 
 
 def ssd_bound(b: int, l: int, h: int, p: int, n: int, elem_bytes: int) -> tuple[float, str, int, float]:
-    """Least time of the SSD on the card: x, B, C (elem_bytes), dt (fp32)
-    read once, y written once and the fp32 state once, against the
-    chunk-dual products at the kernel's chunk (C.B^T and the intra
-    sum over the lower triangle, the inter sum and the state update) at
-    the bf16 tensor-core peak."""
-    n_bytes = (2 * b * l * h * p + 2 * b * l * n) * elem_bytes + 4 * (b * l * h + h + b * h * n * p)
-    q = ssd_ops.CHUNK
-    pairs = q * (q + 1) / 2
-    per_chunk = 2 * pairs * n + 2 * pairs * p + 2 * q * n * p + 2 * q * n * p
-    n_ops = per_chunk * math.ceil(l / q) * b * h
-    return _bound(n_bytes, n_ops)
+    """Least time of the SSD on the card: its work (``ssd_ops.work``) at the
+    bf16 tensor-core peak."""
+    w = ssd_ops.work(b, l, h, p, n, elem_bytes)
+    return _bound(w.bytes, w.ops)
 
 
 def _bound(n_bytes: int, n_ops: float, peak_ops: float = PEAK_BF16_OPS_PER_S) -> tuple[float, str, int, float]:
@@ -1189,21 +1220,10 @@ def wkv_vs_plain(dev: torch.device) -> float:
 
 
 def wkv_bound(b: int, l: int, h: int, kd: int, vd: int, elem_bytes: int, w_bytes: int):
-    """Least time of the WKV on the card: r, k, v (elem_bytes), w (w_bytes)
-    and u (fp32) read once, y written once and the fp32 state once, against
-    the operations of the chunked form at the kernel's chunk (per pair j < i
-    and channel: the exponent's difference, its exp, two products and the
-    sum; the score times v; the bonus; the inter-chunk product with its
-    exp(cs) factors; the state update with its exp(total - cw) factors) at
-    the bf16 tensor-core peak."""
-    n_bytes = (2 * b * l * h * kd + 2 * b * l * h * vd) * elem_bytes + b * l * h * kd * w_bytes
-    n_bytes += 4 * (h * kd + b * h * kd * vd)
-    q = wkv_ops.CHUNK
-    pairs = q * (q - 1) / 2
-    per_chunk = (5 * pairs * kd + 2 * pairs * vd + 3 * q * kd + 2 * q * vd
-                 + 2 * q * kd + 2 * q * kd * vd + 2 * q * kd + 2 * q * kd * vd + 2 * kd * vd + kd)
-    n_ops = per_chunk * math.ceil(l / q) * b * h
-    return _bound(n_bytes, n_ops)
+    """Least time of the WKV on the card: its work (``wkv_ops.work``) at the
+    bf16 tensor-core peak."""
+    w = wkv_ops.work(b, l, h, kd, vd, elem_bytes, w_bytes)
+    return _bound(w.bytes, w.ops)
 
 
 def wkv_kernel_time(dev: torch.device, lib: Path) -> dict:
@@ -1241,17 +1261,11 @@ def wkv_kernel_time(dev: torch.device, lib: Path) -> dict:
 
 
 def chargax_bound(b: int, p: int, nn: int, n_packs: int | None = None) -> tuple[float, str, int, int]:
-    """Least time of one chargax_step on the card: 7 slabs read and 5
-    written once, the cap read and excess/p_req written once, each pack's
-    four (P,) rows, (Nn, P) membership and (Nn,) budgets read once (one
-    pack, or ``n_packs`` and the (B,) int32 pack index), against its float
-    operations at the fp32 rate."""
-    k = 1 if n_packs is None else n_packs
-    n_bytes = 4 * (b * p * 12 + 3 * b + k * (4 * p + nn * p + nn) + (0 if n_packs is None else b))
-    n_ops = b * p * (OPS_PER_POLE + OPS_PER_POLE_NODE * nn)
-    bytes_ms = n_bytes / PEAK_HBM_BYTES_PER_S * 1000.0
-    ops_ms = n_ops / PEAK_FP32_OPS_PER_S * 1000.0
-    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, n_ops
+    """Least time of one chargax_step on the card: its work (``ops.work``:
+    the slabs, the cap and each pack read once, the outputs written once)
+    against its float operations at the fp32 rate."""
+    w = ops.work(b, p, nn, n_packs)
+    return _bound(w.bytes, w.ops, PEAK_FP32_OPS_PER_S)
 
 
 def chargax_kernel_time(dev: torch.device, slabs: PoleSlabs, pp, dt: float) -> tuple:
@@ -2996,6 +3010,216 @@ def slice_card_vs_cpu(dev: torch.device, arch: str) -> dict:
     return out
 
 
+class _AllReduceTimer:
+    """Wraps ``torch.distributed.all_reduce`` while active: CUDA events
+    around each call, read after a synchronize."""
+
+    def __init__(self):
+        self.marks: list[tuple] = []
+
+    def __enter__(self):
+        self._orig = dist.all_reduce
+
+        def timed(*args, **kwargs):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = self._orig(*args, **kwargs)
+            b.record()
+            self.marks.append((a, b))
+            return out
+
+        dist.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        dist.all_reduce = self._orig
+
+    def ms(self) -> tuple[int, float]:
+        torch.cuda.synchronize()
+        return len(self.marks), sum(a.elapsed_time(b) for a, b in self.marks)
+
+
+def _timed_update(train, runner) -> tuple[object, dict, dict]:
+    """One update through ``train``'s parts, CUDA events between them, the
+    kernel counts reset just before and read just after."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    ev[0].record()
+    after, traj = train.rollout(runner)
+    ev[1].record()
+    gae, targets = train.advantages(after, traj)
+    ev[2].record()
+    after, losses = train.learn(after, traj, gae, targets)
+    ev[3].record()
+    after = after._replace(update_idx=after.update_idx + 1)
+    metrics = train.metrics(runner, after, traj, losses)
+    torch.cuda.synchronize()
+    times = {"rollout_ms": ev[0].elapsed_time(ev[1]), "gae_ms": ev[1].elapsed_time(ev[2]),
+             "learn_ms": ev[2].elapsed_time(ev[3]), "update_ms": ev[0].elapsed_time(ev[3]),
+             "launches": launch_counts()}
+    return after, {k: float(v) for k, v in metrics.items()}, times
+
+
+def sharded_world1(dev: torch.device) -> dict:
+    """Phase 40: an NCCL group of this one process; SHARD_UPDATES PPO updates
+    at phase 20's shape through make_train(shard_envs=...) against the
+    unsharded make_train from the same seed, update by update in turns,
+    every parameter within SHARD_PARAM_TOL of its norm after each update,
+    each update's parts and its all-reduces timed; then one episode of phase 26's fleet
+    with FleetEnv(shard=True) under the group against shard=False, rewards
+    within TOL.  The group is destroyed at the end."""
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", rank=0, world_size=1, device_id=dev)
+        try:
+            shard = make_shard_envs(device=dev)
+            env = ChargaxEnv(EnvConfig(fused_step=True), device=dev)
+            cfg = PPOConfig(num_envs=NUM_ENVS, total_timesteps=NUM_ENVS * PPO_SHAPE["rollout_steps"] * SHARD_UPDATES,
+                            **PPO_SHAPE)
+            plain, sharded = make_train(cfg, env, device=dev), make_train(cfg, env, device=dev, shard_envs=shard)
+            r_p = plain.init(torch.Generator(device=dev).manual_seed(40))
+            r_s = sharded.init(torch.Generator(device=dev).manual_seed(40))
+            updates, launches = [], {"plain": 0, "sharded": 0}
+            for u in range(SHARD_UPDATES):
+                before = {k: v.detach().clone() for k, v in r_p.params.named_parameters()}
+                for first in (("plain", "sharded") if u % 2 == 0 else ("sharded", "plain")):
+                    if first == "plain":
+                        r_p, m_p, t_p = _timed_update(plain, r_p)
+                    else:
+                        with _AllReduceTimer() as timer:
+                            r_s, m_s, t_s = _timed_update(sharded, r_s)
+                        n_calls, ar_ms = timer.ms()
+                launches["plain"] += t_p["launches"]["chargax_step"]
+                launches["sharded"] += t_s["launches"]["chargax_step"]
+                for t in (t_p, t_s):
+                    check(t["launches"] == {"chargax_step": cfg.rollout_steps, "flash_attention": 0, "mamba2_ssd": 0,
+                                            "rwkv6_wkv": 0}, f"phase 40 update launches {t['launches']}")
+                sp = dict(r_s.params.named_parameters())
+                param_err, step_err, outside, far = {}, {}, 0, 0.0
+                for name, p in r_p.params.named_parameters():
+                    p, q = p.detach(), sp[name].detach()
+                    param_err[name] = float((q - p).norm() / p.norm().clamp_min(1e-30))
+                    step = p - before[name]
+                    diff = (q - before[name] - step).abs()
+                    step_err[name] = float(diff.norm() / step.norm().clamp_min(1e-30))
+                    outside += int((diff > PPO_UPDATE_TOL["atol"] + PPO_UPDATE_TOL["rtol"] * step.abs()).sum())
+                    far = max(far, float(diff.max()))
+                worst = max(param_err, key=param_err.get)
+                check(param_err[worst] <= SHARD_PARAM_TOL,
+                      f"phase 40 update {u}: {worst} off by {param_err[worst]:.3g} of its norm")
+                worst_step = max(step_err, key=step_err.get)
+                metric_err = max(abs(m_s[k] - m_p[k]) / max(abs(m_p[k]), 1e-30) for k in m_p)
+                updates.append({"plain": {k: v for k, v in t_p.items() if k != "launches"},
+                                "sharded": {k: v for k, v in t_s.items() if k != "launches"},
+                                "all_reduce_calls": n_calls, "all_reduce_ms": ar_ms,
+                                "param_rel_err": param_err[worst], "param_change_rel_err": step_err[worst_step],
+                                "change_elements_outside": outside, "change_max_abs_err": far,
+                                "metric_rel_err": metric_err})
+                print(
+                    f"sharded ppo world 1, update {u} ({'plain' if u % 2 == 0 else 'sharded'} first): sharded "
+                    f"{t_s['update_ms']:.1f} ms (rollout {t_s['rollout_ms']:.1f}, learn {t_s['learn_ms']:.1f}) against "
+                    f"unsharded {t_p['update_ms']:.1f} ms (rollout {t_p['rollout_ms']:.1f}, learn "
+                    f"{t_p['learn_ms']:.1f}); {n_calls} all-reduces {ar_ms:.3f} ms; parameters within "
+                    f"{param_err[worst]:.3g} of their norm ({worst}; limit {SHARD_PARAM_TOL}), this update's change "
+                    f"within {step_err[worst_step]:.3g} ({worst_step}; {outside} elements outside atol 2e-6 + "
+                    f"rtol 1e-3, largest {far:.3g}), metrics within {metric_err:.3g}; "
+                    f"rollout_reward {m_s['rollout_reward']:.3f} / {m_p['rollout_reward']:.3f}"
+                )
+            out["ppo"] = {"updates": updates, "launches": launches}
+            del plain, sharded, r_p, r_s
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            rewards = {}
+            reset_launch_counts()
+            for flag in (True, False):
+                fleet = FleetEnv(FLEET_ARCHS, EnvConfig(fused_step=True), scenarios=FLEET_SCENARIOS,
+                                 replicas=FLEET_REPLICAS, shard=flag, device=dev)
+                check((fleet.env_shard is not None) == flag and fleet.num_envs == FLEET_REPLICAS * len(FLEET_ARCHS),
+                      f"phase 40 fleet shard={flag}: {fleet.env_shard}, {fleet.num_envs} envs")
+                gen = torch.Generator(device=dev).manual_seed(40)
+                params = fleet.default_params
+                _, state = fleet.reset(gen, params)
+                got = []
+                for _ in range(fleet.config.episode_steps):
+                    action = fleet.sample_action(gen)
+                    _, state, reward, _, _ = fleet.step(gen, state, action, params)
+                    got.append(reward)
+                rewards[flag] = torch.stack(got)
+            fleet_launches = launch_counts()["chargax_step"]
+            steps = EnvConfig().episode_steps
+            check(fleet_launches == 2 * steps, f"phase 40 fleet launches {fleet_launches}, expected {2 * steps}")
+            err = float((rewards[True] - rewards[False]).abs().max())
+            check(torch.allclose(rewards[True], rewards[False], **TOL),
+                  f"phase 40 sharded fleet rewards off the unsharded ones by {err}")
+            print(f"sharded fleet world 1: {FLEET_REPLICAS} fleets x {len(FLEET_ARCHS)} stations, one episode, "
+                  f"rewards within {err:.3g} of shard=False's (limit rtol 1e-4 / atol 2e-4), "
+                  f"{fleet_launches} chargax_step launches")
+            out["fleet"] = {"reward_max_abs_err": err, "launches": fleet_launches}
+        finally:
+            dist.destroy_process_group()
+    out["launches"] = out["ppo"]["launches"]["plain"] + out["ppo"]["launches"]["sharded"] + out["fleet"]["launches"]
+    return out
+
+
+def gym_bridge_episode(dev: torch.device) -> dict:
+    """Phase 41: one paper_16 episode through ``GymnasiumBridge`` on the card,
+    held to the JAX package's smoke contract; where the machine has no
+    gymnasium, one line saying the phase did not run."""
+    try:
+        import gymnasium as gym
+    except ImportError:
+        print("gymnasium bridge: NOT RUN, this machine has no gymnasium (the bridge's optional dependency)")
+        return {"ran": False, "launches": 0}
+    from repro_torch.envs import GymnasiumBridge
+
+    env = ChargaxEnv(EnvConfig(fused_step=True), device=dev)
+    bridge = GymnasiumBridge(env, seed=0)
+    check(isinstance(bridge, gym.Env), "the bridge is not a gymnasium.Env")
+    obs, _ = bridge.reset(seed=17)
+    check(bridge.observation_space.contains(obs), "bridge reset obs outside its space")
+    reset_launch_counts()
+    truncations, t0 = 0, time.perf_counter()
+    for _ in range(env.config.episode_steps):
+        obs, reward, terminated, truncated, _ = bridge.step(bridge.action_space.sample())
+        check(bridge.observation_space.contains(obs) and isinstance(reward, float) and not terminated,
+              "bridge step out of contract")
+        truncations += int(truncated)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()["chargax_step"]
+    check(truncations == 1, f"bridge episode truncated {truncations} times")
+    check(launches == env.config.episode_steps, f"bridge episode launches {launches}")
+    check(bridge.observation_space.contains(bridge.reset()[0]), "bridge second reset")
+    print(f"gymnasium bridge: one {env.config.episode_steps}-step episode on the card in {wall * 1000:.1f} ms, "
+          f"one truncation, {launches} chargax_step launches")
+    return {"ran": True, "episode_ms": wall * 1000, "launches": launches}
+
+
+def roofline_against_card(card: str, measured_ms: dict) -> dict:
+    """Phase 42: the port's roofline (counted on the meta device, on the
+    host) for the cells the script timed, beside each cell's measured
+    median from its phase."""
+    out = {}
+    for arch, shape, phase in ROOFLINE_CELLS:
+        t0 = time.perf_counter()
+        rec = roofline.analyze_cell(arch, shape, microbatches=1)
+        measured_s = measured_ms[arch] / 1000.0
+        share = rec["model_flops"] / (measured_s * roofline.PEAK_FLOPS)
+        out[arch] = {**rec, "measured_ms": measured_ms[arch], "phase": phase, "count_s": time.perf_counter() - t0,
+                     "measured_over_roofline": measured_s / rec["roofline_step_s"], "model_flop_share": share}
+        print(
+            f"roofline {arch} {shape.kind} {shape.global_batch} x {shape.seq_len} [{card}]: roofline "
+            f"{rec['roofline_step_s'] * 1000:.2f} ms ({rec['bottleneck']}-bound: compute {rec['t_compute_s'] * 1000:.2f} "
+            f"ms of which fp32 FLOPs {rec['per_device_flops_fp32'] / rec['per_device_flops']:.4f}, memory "
+            f"{rec['t_memory_s'] * 1000:.2f} ms), measured {measured_ms[arch]:.2f} ms (phase {phase}), measured "
+            f"over roofline {out[arch]['measured_over_roofline']:.3f}, model FLOPs "
+            f"{rec['model_flops']:.4g} over measured x 989 TFLOP/s = {share:.4f}; counted in "
+            f"{out[arch]['count_s']:.1f} s on the host"
+        )
+    return out
+
+
 def check_kpis(result: dict, label: str) -> None:
     check(all(math.isfinite(v) for v in result.values()), f"{label}: non-finite KPIs {result}")
     check(result["energy_delivered_kwh"] > 0, f"{label}: no energy delivered")
@@ -3328,6 +3552,25 @@ def main() -> int:
     phase_s[39] = time.perf_counter() - lap
     print("lm stack phases, host s: " + " ".join(f"{k}={phase_s[k]:.1f}" for k in range(36, 40)))
 
+    # --- 40. the sharded path at world 1 ---------------------------------------------------------
+    lap = time.perf_counter()
+    sharded = sharded_world1(dev)
+    phase_s[40] = time.perf_counter() - lap
+
+    # --- 41. the gymnasium bridge ------------------------------------------------------------------
+    lap = time.perf_counter()
+    bridge = gym_bridge_episode(dev)
+    phase_s[41] = time.perf_counter() - lap
+
+    # --- 42. the roofline against the card --------------------------------------------------------
+    lap = time.perf_counter()
+    roof = roofline_against_card(card, {
+        TINY: tiny["median_step_ms"], GRANITE: moe_train["median_step_ms"],
+        ZAMBA: zamba_metrics["prefill_ms"], RWKV: rwkv_metrics["prefill_ms"],
+    })
+    phase_s[42] = time.perf_counter() - lap
+    print("last phases, host s: " + " ".join(f"{k}={phase_s[k]:.1f}" for k in range(40, 43)))
+
     metrics = {
         "env_steps_per_s": env_steps_per_s,
         "episode_s": episode_s,
@@ -3350,6 +3593,9 @@ def main() -> int:
         "lm_train": {TINY: tiny, **scan_train, "card_vs_cpu": step_checks, "resume": resume},
         "lm_stack": {"flash": slice_flash, "card_vs_cpu": slice_checks, "serve": slice_serve,
                      "train": {GRANITE: moe_train, WHISPER: whisper_train}},
+        "sharded_world1": sharded,
+        "gym_bridge": bridge,
+        "roofline": roof,
         "phases_s": phase_s,
     }
     print(json.dumps({"metrics": metrics}))
@@ -3374,7 +3620,8 @@ def main() -> int:
             "replaces": "src/repro/kernels/chargax_step/kernel.py:26",
             "launches": launches + ppo_summary["chargax_step_launches"]
             + mix_summary["chargax_step_launches"] + sweep["launches"] + fleet_check["launches"]
-            + fleet_summary["launches"] + coupled["launches"] + telem["launches"],
+            + fleet_summary["launches"] + coupled["launches"] + telem["launches"] + sharded["launches"]
+            + bridge["launches"],
             "launches_by_path": {
                 "evaluate": launches,
                 "make_train": ppo_summary["chargax_step_launches"],
@@ -3384,6 +3631,10 @@ def main() -> int:
                 "fleet": fleet_summary["launches"],
                 "fleet_grid_city_coupled": coupled["launches"],
                 "telemetry": telem["launches"],
+                "make_train_sharded_world1": sharded["ppo"]["launches"]["sharded"],
+                "make_train_unsharded_beside_it": sharded["ppo"]["launches"]["plain"],
+                "fleet_sharded_world1_and_unsharded": sharded["fleet"]["launches"],
+                "gym_bridge": bridge["launches"],
             },
             "max_abs_err": max(max_err, stacked_err["kernel_max_abs_err"], fleet_check["kernel_max_abs_err"],
                                fleet_summary["kernel"]["max_abs_err"]),

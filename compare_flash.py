@@ -181,7 +181,7 @@ def time_flash(dev: torch.device, libs: dict) -> None:
     gen = torch.Generator(device=dev).manual_seed(12)
     bf16 = torch.bfloat16
     qkv = [tuple(cs._randn((b, h, l, d), gen, dev, bf16) for _ in range(3)) for _ in range(2)]
-    bound_ms, _, _, n_ops = cs.flash_bound(b, h, l, d, 2)
+    bound_ms, _, _, n_ops, _ = cs.attention_bound(b, h, h, l, l, d, bf16, True, None)
     with torch.inference_mode():
         for rnd in range(2):
             for name, lib in libs.items():

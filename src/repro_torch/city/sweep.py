@@ -53,9 +53,10 @@ def sweep_layouts(
     rate.  A stochastic policy's own draws are not shared.
 
     Args:
-        fleet: a :class:`repro_torch.core.FleetEnv` (its own ``city`` and
-            ``replicas`` are ignored: the sweep steps K replicas of it, each
-            coupled to its candidate).
+        fleet: a :class:`repro_torch.core.FleetEnv` (its own ``city``,
+            ``replicas`` and ``shard`` are ignored: the sweep steps K
+            replicas of it, each coupled to its candidate, whole on every
+            rank).
         cities: a stack of K ``CityParams`` (:meth:`CityParams.stack`), or a
             list/tuple of them, which is stacked here.
         policy: ``(params, generator, obs) -> action``, a trained PPO policy
@@ -74,6 +75,7 @@ def sweep_layouts(
     if isinstance(cities, (list, tuple)):
         cities = CityParams.stack(cities)
     k = cities.station_xy.shape[0]
+    fleet = fleet.with_shard(False)
     one, swept = fleet.with_replicas(1), fleet.with_replicas(k)
     steps = steps if steps is not None else fleet.config.episode_steps
     if rng is None:

@@ -14,6 +14,13 @@ station ``b % S`` of fleet ``b // S``, so ``x.reshape(E, S, ...)`` gives the
 JAX layout.  E = 1 is JAX's ``FleetEnv``.  Grid and city coupling act within
 each fleet, never across fleets.
 
+Under an initialised ``torch.distributed`` group of W ranks with W dividing
+E, ``shard=True`` (the default) gives rank ``r`` the whole fleets
+``[r·E/W, (r+1)·E/W)``, one contiguous block of envs: ``reset``/``step`` and
+the params are that block's.  Every coupling sums within a fleet, so no
+step needs a collective.  Otherwise the fleet runs whole on every rank, as
+the JAX package replicates a leaf that does not divide.
+
 Parameters (:func:`stack_params`): the station fields become rows per env,
 ``(B, N)`` per port, ``(B,)`` battery scalars, a ``(B, Nn, P)`` membership;
 the tables the clock reads keep one copy per distinct scenario, read at
@@ -35,6 +42,7 @@ from functools import cached_property
 from typing import Any, Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import station, transition
 from repro_torch.core.datasets import DAYS_PER_YEAR
@@ -175,8 +183,13 @@ class FleetEnv:
             over each fleet's stations, ``city/overflow`` and ``city/stream``.
             A zero population adds exactly zero rate.
         replicas: E fleets stepped together (JAX's outer vmap).
+        shard: under an initialised process group whose size W divides E,
+            this rank steps its block of E / W fleets (``env_shard`` is its
+            :class:`~repro_torch.distributed.EnvShard`, ``local_replicas``
+            its fleets); ``False`` runs every fleet on every rank.
 
-    ``reset``/``step`` mirror ``ChargaxEnv`` over ``num_envs = E x S`` envs:
+    ``reset``/``step`` mirror ``ChargaxEnv`` over ``num_envs`` envs (E x S,
+    or this rank's E / W x S):
     obs ``(B, obs_dim)``, reward ``(B,)``, action ``(B, heads)``, every info
     leaf ``(B,)``, with ``fleet_reward``/``fleet_profit`` each fleet's sum
     broadcast over its stations.  ``step`` returns the tuple
@@ -194,6 +207,7 @@ class FleetEnv:
         city: Any | None = None,
         *,
         replicas: int = 1,
+        shard: bool = True,
         device: torch.device | str | None = None,
     ):
         if not architectures:
@@ -239,6 +253,13 @@ class FleetEnv:
         self.weights = weights
         self.couple_grid = couple_grid
         self.replicas = replicas
+        self.shard = shard
+        self.env_shard = None
+        if shard and dist.is_available() and dist.is_initialized() and replicas % dist.get_world_size() == 0:
+            from repro_torch.distributed.env_sharding import make_shard_envs
+
+            self.env_shard = make_shard_envs(device=self.device)
+        self.local_replicas = replicas if self.env_shard is None else replicas // self.env_shard.world
 
     def _rebuild(self, **changes: Any) -> "FleetEnv":
         kw = dict(
@@ -249,6 +270,7 @@ class FleetEnv:
             couple_grid=self.couple_grid,
             city=self.city,
             replicas=self.replicas,
+            shard=self.shard,
             device=self.device,
         )
         return FleetEnv(**(kw | changes))
@@ -265,6 +287,10 @@ class FleetEnv:
         """This fleet, ``replicas`` times over."""
         return self if replicas == self.replicas else self._rebuild(replicas=replicas)
 
+    def with_shard(self, shard: bool) -> "FleetEnv":
+        """This fleet with its fleets sharded over the process group, or not."""
+        return self if shard == self.shard else self._rebuild(shard=shard)
+
     # ------------------------------------------------------------------
     @property
     def n_stations(self) -> int:
@@ -272,7 +298,8 @@ class FleetEnv:
 
     @property
     def num_envs(self) -> int:
-        return self.replicas * self.n_stations
+        """The envs this process steps: E x S, or its E / W x S sharded."""
+        return self.local_replicas * self.n_stations
 
     @property
     def num_action_heads(self) -> int:
@@ -288,7 +315,8 @@ class FleetEnv:
 
     @cached_property
     def default_params(self) -> EnvParams:
-        """The fleet's params (:func:`stack_params`), its E x S envs."""
+        """The fleet's params (:func:`stack_params`), its E x S envs (this
+        rank's block of them, sharded: every fleet's are the same)."""
         if self.scenarios is None:
             per_station = [env.make_params(weights=self.weights) for env in self.envs]
         else:
@@ -310,7 +338,7 @@ class FleetEnv:
             for env, sc in zip(self.envs, self.scenarios):
                 sc = baseline if sc is None else _scen.make(sc) if isinstance(sc, str) else sc
                 per_station.append(sc.make_params(env, weights=self.weights))
-        return stack_params(per_station, self.replicas)
+        return stack_params(per_station, self.local_replicas)
 
     def station_params(self, i: int, params: EnvParams | None = None) -> EnvParams:
         """Station ``i``'s own (unstacked) params (of the first fleet)."""
@@ -351,8 +379,14 @@ class FleetEnv:
     ) -> tuple[Tensor, EnvState, Tensor, Tensor, dict]:
         """``step`` with the city passed in: one :class:`CityParams` for
         every fleet, or a stack of E (``CityParams.stack``), one a fleet, as
-        the placement sweep (:func:`repro_torch.city.sweep_layouts`) passes."""
+        the placement sweep (:func:`repro_torch.city.sweep_layouts`) passes;
+        sharded, a stack of E is cut to this rank's fleets."""
         params = params if params is not None else self.default_params
+        if city is not None and self.env_shard is not None and city.station_xy.dim() == 3:
+            lo, hi = self.env_shard.block(self.replicas)
+            city = dataclasses.replace(
+                city, **{f.name: getattr(city, f.name)[lo:hi] for f in dataclasses.fields(city)}
+            )
         if self.couple_grid or city is not None:
             ts = self._staged_step(rng, state, action, params, city)
         else:
@@ -363,8 +397,8 @@ class FleetEnv:
         return ts.obs, ts.state, ts.reward, ts.done, info
 
     def _fleets(self, x: Tensor) -> Tensor:
-        """(B, ...) -> (E, S, ...)."""
-        return x.reshape(self.replicas, self.n_stations, *x.shape[1:])
+        """(B, ...) -> (E, S, ...), this process's E."""
+        return x.reshape(self.local_replicas, self.n_stations, *x.shape[1:])
 
     def _per_fleet_sum(self, x: Tensor) -> Tensor:
         return self._fleets(x).sum(1, keepdim=True).expand(-1, self.n_stations).reshape(-1)

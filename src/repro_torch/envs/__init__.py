@@ -3,9 +3,13 @@
     wenv = LogWrapper(AutoReset(ChargaxEnv(cfg)))    # autoreset + episode stats
     obs, state = wenv.reset(gen, num_envs=16)
     obs, state, reward, done, info = wenv.step(gen, state, action)
+
+``GymnasiumBridge`` gives one env through ``gymnasium.Env`` (gymnasium is
+optional: the module imports without it).
 """
 from repro_torch.envs import spaces
 from repro_torch.envs.base import Environment, TimeStep
+from repro_torch.envs.gym_bridge import GymnasiumBridge
 from repro_torch.envs.wrappers import (
     AutoReset,
     AutoResetDraws,
@@ -20,6 +24,7 @@ __all__ = [
     "AutoResetDraws",
     "Environment",
     "FleetAdapter",
+    "GymnasiumBridge",
     "LogState",
     "LogWrapper",
     "TimeStep",

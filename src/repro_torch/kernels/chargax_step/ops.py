@@ -19,6 +19,10 @@ Three granularities:
   ``EnvConfig.fused_step`` is on.  It feeds the shared
   :func:`repro_torch.core.transition.charge_bookkeeping`.
 
+A ``meta`` tensor (a step counted by :mod:`repro_torch.analysis.roofline`)
+launches nothing and computes nothing: :func:`chargax_step` returns empty
+outputs and reports the kernel's :func:`work`.
+
 The battery is pole index ``n_evse`` (the paper's (N+1)-th pole).  Poles are
 not padded: P = n_evse + 1 and Nn are the station's own.  The kernel keeps a
 block's tiles in shared memory, which bounds them: P <= ``MAX_POLES`` and
@@ -49,6 +53,7 @@ from repro_torch.core.transition import (
     grid_cap_kw,
 )
 from repro_torch.kernels._build import build, check_tensor
+from repro_torch.kernels._work import KernelWork, report
 from repro_torch.kernels.chargax_step.ref import (
     BIG,
     FusedOut,
@@ -73,6 +78,22 @@ SMEM_BYTES = 227 * 1024
 # stages per env, per pack and per (env, node) (smem_floats there)
 ENVS_PER_BLOCK = 32
 _TILES, _POLE_CONSTS = 9, 6
+# float operations of one step per pole (counted from csrc/chargax_step.cu:
+# three charge-rate curves, bounds, clip, curtail and the integrator) and per
+# pole and node (the Eq. 5 load and scale)
+OPS_PER_POLE = 75
+OPS_PER_POLE_NODE = 6
+
+
+def work(b: int, p: int, nn: int, n_packs: int | None = None) -> KernelWork:
+    """One call's work: 7 slabs read and 5 written once, the cap read and
+    excess/p_req written once, each pack's four (P,) rows, (Nn, P)
+    membership and (Nn,) budgets read once (one pack, or ``n_packs`` and the
+    (B,) int32 pack index), against its float operations at the fp32 rate."""
+    k = 1 if n_packs is None else n_packs
+    n_bytes = 4 * (b * p * 12 + 3 * b + k * (4 * p + nn * p + nn) + (0 if n_packs is None else b))
+    n_ops = b * p * (OPS_PER_POLE + OPS_PER_POLE_NODE * nn)
+    return KernelWork("chargax_step", n_bytes, n_ops, torch.float32)
 
 
 def smem_bytes(p: int, nn: int, n_packs: int | None = None) -> int:
@@ -226,13 +247,21 @@ def chargax_step(
     pack for every env or a :class:`PolePacks` of K packs and each env's.
 
     On CUDA tensors this launches the kernel (``chargax_step.launches`` rises
-    by one); on CPU tensors it runs :func:`fused_step_ref`.
+    by one); on CPU tensors it runs :func:`fused_step_ref`; on meta tensors
+    it returns empty outputs and reports :func:`work`.
     """
     device = slabs.target.device
     if device.type == "cpu":
         return fused_step_ref(slabs, pp, dt_hours, cap_kw)
+    if device.type == "meta":
+        b, p = slabs.target.shape
+        packs = pp.packs if isinstance(pp, PolePacks) else pp
+        k = packs.member.shape[0] if isinstance(pp, PolePacks) else None
+        report(work(b, p, packs.member.shape[-2], k))
+        empty = slabs.target.new_empty
+        return FusedOut(*[empty((b, p)) for _ in range(5)], *[empty((b,)) for _ in range(2)])
     if device.type != "cuda":
-        raise ValueError(f"chargax_step runs on cuda or cpu tensors, not {device.type}")
+        raise ValueError(f"chargax_step runs on cuda, cpu or meta tensors, not {device.type}")
     if cap_kw is None:
         cap_kw = torch.full((slabs.target.shape[0],), BIG, device=device)
     return _launch(slabs, pp, dt_hours, cap_kw)

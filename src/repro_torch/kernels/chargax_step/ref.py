@@ -57,7 +57,7 @@ class PolePacks:
 
     Made once per batch of stations (a fleet's params), so the index is held
     in range here, where reading it waits for the device once, and not at
-    every launch."""
+    every launch (a meta index, which holds no values, is not)."""
 
     packs: PoleParams  # every field with a leading K axis: (K, P), (K, Nn, P), (K, Nn)
     index: Tensor  # (B,) int32 in [0, K)
@@ -68,7 +68,7 @@ class PolePacks:
             raise ValueError(
                 f"pack index must be (B,) int32, got {tuple(self.index.shape)} {self.index.dtype}"
             )
-        if self.index.numel():
+        if self.index.numel() and self.index.device.type != "meta":
             lo, hi = int(self.index.min()), int(self.index.max())
             if lo < 0 or hi >= k:
                 raise ValueError(f"pack index out of range: [{lo}, {hi}] for {k} packs")

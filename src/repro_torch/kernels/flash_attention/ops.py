@@ -11,6 +11,10 @@ launches it; a CPU tensor runs the plain version
 (:func:`repro_torch.kernels.flash_attention.ref.mha_blocked`).  There is no
 fallback between the two: a CUDA tensor launches the kernel or raises.
 
+A ``meta`` tensor (a step counted by :mod:`repro_torch.analysis.roofline`)
+launches nothing and computes nothing: the forward returns an empty output
+and reports the kernel's :func:`work`.
+
 Gradients flow through an ``autograd.Function`` (the JAX ``custom_vjp``): its
 forward launches the kernel (or runs the plain version on the CPU) and saves
 q, k, v; its backward recomputes through ``mha_blocked`` under autograd and
@@ -25,9 +29,11 @@ import ctypes
 import functools
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from repro_torch.kernels._build import build, check_tensor, recompute_backward
+from repro_torch.kernels._work import KernelWork, report
 from repro_torch.kernels.flash_attention.ref import mha_blocked
 
 Tensor = torch.Tensor
@@ -37,6 +43,26 @@ HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's template instances
 DTYPES = (torch.float32, torch.bfloat16)
 CPU_BLOCK_K = 128  # kv block of the plain version (the JAX wrapper's block_k)
 BACKWARD_BLOCK_K = 128  # kv block of the recomputed backward, the JAX ``_bwd``'s
+
+
+def live_pairs(lq: int, lk: int, causal: bool, window: int | None, q_offset: int | None = None) -> int:
+    """The (query, key) pairs of one head that the masks leave live: the
+    diagonal's triangle, the window's band; query ``i`` sits at key position
+    ``i + q_offset`` (default: the queries at the end of the kv axis)."""
+    rows = np.arange(lq, dtype=np.int64) + (lk - lq if q_offset is None else q_offset)
+    first = np.zeros(lq, dtype=np.int64) if window is None else np.maximum(rows - window + 1, 0)
+    last = np.minimum(rows, lk - 1) if causal else np.full(lq, lk - 1, dtype=np.int64)
+    return int(np.maximum(last - first + 1, 0).sum())
+
+
+def work(b: int, hq: int, hkv: int, lq: int, lk: int, d: int, dtype: torch.dtype, causal: bool,
+         window: int | None, q_offset: int | None = None) -> KernelWork:
+    """One call's work: q, k, v read once and o written once, against QK^T
+    and PV over the live pairs (:func:`live_pairs`), at the inputs' type
+    (bf16 on the tensor cores, fp32 on the CUDA cores)."""
+    n_bytes = dtype.itemsize * (2 * b * hq * lq * d + 2 * b * hkv * lk * d)
+    n_ops = 4.0 * b * hq * d * live_pairs(lq, lk, causal, window, q_offset)
+    return KernelWork("flash_attention", n_bytes, n_ops, dtype)
 
 
 def build_kernel() -> tuple[Path, str]:
@@ -116,7 +142,8 @@ def _launch(
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward: the kernel on CUDA tensors, ``mha_blocked`` on CPU tensors.
+    """Forward: the kernel on CUDA tensors, ``mha_blocked`` on CPU tensors,
+    an empty output and a report of the kernel's work on meta tensors.
     Backward: autograd through ``mha_blocked`` on the saved inputs."""
 
     @staticmethod
@@ -125,6 +152,10 @@ class _FlashAttention(torch.autograd.Function):
         ctx.opts = opts
         if q.device.type == "cpu":
             return mha_blocked(q, k, v, **opts, block_k=CPU_BLOCK_K)
+        if q.device.type == "meta":
+            (b, hq, lq, d), (hkv, lk) = q.shape, k.shape[1:3]
+            report(work(b, hq, hkv, lq, lk, d, q.dtype, opts["causal"], opts["window"], opts["q_offset"]))
+            return torch.empty_like(q)
         return _launch(q, k, v, **opts)
 
     @staticmethod
@@ -148,14 +179,15 @@ def flash_attention(
     the kv axis (``lk - lq``).  Returns ``(B, Hq, Lq, D)`` in q's dtype.
 
     On CUDA tensors this launches the kernel (``flash_attention.launches``
-    rises by one); on CPU tensors it runs :func:`ref.mha_blocked`.  Both go
-    through the ``autograd.Function``, whose backward is the plain version's.
+    rises by one); on CPU tensors it runs :func:`ref.mha_blocked`; on meta
+    tensors it reports :func:`work`.  All go through the ``autograd.Function``,
+    whose backward is the plain version's.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
     off = k.shape[2] - q.shape[2] if q_offset is None else q_offset
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device.type}")
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta tensors, not {q.device.type}")
     opts = dict(causal=causal, window=window, softcap=softcap, scale=scale, q_offset=off)
     return _FlashAttention.apply(q, k, v, opts)
 

@@ -9,6 +9,10 @@ a CPU tensor runs the plain version
 (:func:`repro_torch.kernels.mamba2_ssd.ref.ssd_chunked`).  There is no
 fallback between the two: a CUDA tensor launches the kernel or raises.
 
+A ``meta`` tensor (a step counted by :mod:`repro_torch.analysis.roofline`)
+launches nothing and computes nothing: the forward returns empty outputs and
+reports the kernel's :func:`work`.
+
 Gradients flow through an ``autograd.Function`` (the JAX ``custom_vjp``): its
 forward launches the kernel (or runs the plain version on the CPU) and saves
 the inputs; its backward recomputes through ``ssd_chunked`` under autograd
@@ -22,21 +26,37 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from pathlib import Path
 
 import torch
 
 from repro_torch.kernels._build import build, check_tensor, recompute_backward
+from repro_torch.kernels._work import KernelWork, report
 from repro_torch.kernels.mamba2_ssd.ref import ssd_chunked, ssd_decode_step
 
 Tensor = torch.Tensor
 
-__all__ = ["ssd", "ssd_decode_step", "build_kernel", "blocks_per_sm"]
+__all__ = ["ssd", "ssd_decode_step", "build_kernel", "blocks_per_sm", "work"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_DIM = 128  # N and P: multiples of 16 up to this
 CHUNK = 64  # the kernel's chunk rows, ``kChunk`` in csrc/ssd.cu
+
+
+def work(b: int, l: int, h: int, p: int, n: int, elem_bytes: int) -> KernelWork:
+    """One call's work: x, B, C (``elem_bytes`` each) and dt (fp32) read
+    once, y written once and the fp32 state once, against the chunk-dual
+    products at the kernel's chunk (C.B^T and the intra sum over the lower
+    triangle, the inter sum and the state update), on the tensor cores
+    (both dtypes run there)."""
+    n_bytes = (2 * b * l * h * p + 2 * b * l * n) * elem_bytes + 4 * (b * l * h + h + b * h * n * p)
+    q = CHUNK
+    pairs = q * (q + 1) / 2
+    per_chunk = 2 * pairs * n + 2 * pairs * p + 2 * q * n * p + 2 * q * n * p
+    n_ops = per_chunk * math.ceil(l / q) * b * h
+    return KernelWork("mamba2_ssd", n_bytes, n_ops, torch.bfloat16)
 
 
 def build_kernel() -> tuple[Path, str]:
@@ -123,7 +143,8 @@ def _launch(
 
 
 class _SSD(torch.autograd.Function):
-    """Forward: the kernel on CUDA tensors, ``ssd_chunked`` on CPU tensors.
+    """Forward: the kernel on CUDA tensors, ``ssd_chunked`` on CPU tensors,
+    empty outputs and a report of the kernel's work on meta tensors.
     Backward: autograd through ``ssd_chunked`` on the saved inputs."""
 
     @staticmethod
@@ -132,6 +153,10 @@ class _SSD(torch.autograd.Function):
         ctx.save_for_backward(x, dt, a, b_mat, c_mat)
         if x.device.type == "cpu":
             return ssd_chunked(x, dt, a, b_mat, c_mat)
+        if x.device.type == "meta":
+            (bsz, l, h, p), n = x.shape, b_mat.shape[-1]
+            report(work(bsz, l, h, p, n, x.element_size()))
+            return torch.empty_like(x), x.new_empty((bsz, h, n, p), dtype=torch.float32)
         return _launch(x, dt, a, b_mat, c_mat)
 
     @staticmethod
@@ -151,14 +176,15 @@ def ssd(
 
     On CUDA tensors this launches the kernel (``ssd.launches`` rises by one;
     it walks chunks of ``CHUNK`` rows); on CPU tensors it runs
-    :func:`ref.ssd_chunked` at its default chunk.  The chunk-dual form is
+    :func:`ref.ssd_chunked` at its default chunk; on meta tensors it reports
+    :func:`work`.  The chunk-dual form is
     exact for any chunk, so the two differ only in the order of fp32 sums.
     Both go through the ``autograd.Function``, whose backward is
     ``ssd_chunked``'s; a ragged L needs no padding on either side, so the
     gradient reaches the inputs as they are.
     """
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"ssd runs on cuda or cpu tensors, not {x.device.type}")
+    if x.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"ssd runs on cuda, cpu or meta tensors, not {x.device.type}")
     return _SSD.apply(x, dt, a, b_mat, c_mat)
 
 

@@ -7,7 +7,10 @@ and loaded with ``ctypes``.  It runs its four products on the tensor cores
 bf16 remainder) for fp32 and bf16 inputs alike.  A CUDA tensor launches it;
 a CPU tensor runs the plain version
 (:func:`repro_torch.kernels.rwkv6_wkv.ref.wkv_chunked`).  There is no
-fallback between the two: a CUDA tensor launches the kernel or raises.
+fallback between the two: a CUDA tensor launches the kernel or raises.  A
+``meta`` tensor (a step counted by :mod:`repro_torch.analysis.roofline`)
+launches nothing and computes nothing: the forward returns empty outputs and
+reports the kernel's :func:`work`.
 
 Gradients flow through an ``autograd.Function`` (the JAX ``custom_vjp``): its
 forward launches the kernel (or runs the plain version on the CPU) and saves
@@ -23,21 +26,41 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from pathlib import Path
 
 import torch
 
 from repro_torch.kernels._build import build, check_tensor, recompute_backward
+from repro_torch.kernels._work import KernelWork, report
 from repro_torch.kernels.rwkv6_wkv.ref import wkv_chunked, wkv_decode_step
 
 Tensor = torch.Tensor
 
-__all__ = ["wkv", "wkv_decode_step", "build_kernel", "blocks_per_sm"]
+__all__ = ["wkv", "wkv_decode_step", "build_kernel", "blocks_per_sm", "work"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv.cu"
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_DIM = 128  # K and V: multiples of 16 up to this
 CHUNK = 64  # the chunk of both versions, ``kChunk`` in csrc/wkv.cu
+
+
+def work(b: int, l: int, h: int, kd: int, vd: int, elem_bytes: int, w_bytes: int) -> KernelWork:
+    """One call's work: r, k, v (``elem_bytes``), w (``w_bytes``) and u
+    (fp32) read once, y written once and the fp32 state once, against the
+    operations of the chunked form at the kernel's chunk (per pair j < i and
+    channel: the exponent's difference, its exp, two products and the sum;
+    the score times v; the bonus; the inter-chunk product with its exp(cs)
+    factors; the state update with its exp(total - cw) factors), on the
+    tensor cores (both dtypes run there)."""
+    n_bytes = (2 * b * l * h * kd + 2 * b * l * h * vd) * elem_bytes + b * l * h * kd * w_bytes
+    n_bytes += 4 * (h * kd + b * h * kd * vd)
+    q = CHUNK
+    pairs = q * (q - 1) / 2
+    per_chunk = (5 * pairs * kd + 2 * pairs * vd + 3 * q * kd + 2 * q * vd
+                 + 2 * q * kd + 2 * q * kd * vd + 2 * q * kd + 2 * q * kd * vd + 2 * kd * vd + kd)
+    n_ops = per_chunk * math.ceil(l / q) * b * h
+    return KernelWork("rwkv6_wkv", n_bytes, n_ops, torch.bfloat16)
 
 
 def build_kernel() -> tuple[Path, str]:
@@ -120,7 +143,8 @@ def _launch(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor) -> tuple[Tens
 
 
 class _WKV(torch.autograd.Function):
-    """Forward: the kernel on CUDA tensors, ``wkv_chunked`` on CPU tensors.
+    """Forward: the kernel on CUDA tensors, ``wkv_chunked`` on CPU tensors,
+    empty outputs and a report of the kernel's work on meta tensors.
     Backward: autograd through ``wkv_chunked`` on the saved inputs."""
 
     @staticmethod
@@ -129,6 +153,10 @@ class _WKV(torch.autograd.Function):
         ctx.save_for_backward(r, k, v, w, u)
         if r.device.type == "cpu":
             return _plain(r, k, v, w, u)
+        if r.device.type == "meta":
+            (bsz, l, h, kd), vd = r.shape, v.shape[-1]
+            report(work(bsz, l, h, kd, vd, r.element_size(), w.element_size()))
+            return torch.empty_like(v), v.new_empty((bsz, h, kd, vd), dtype=torch.float32)
         return _launch(r, k, v, w, u)
 
     @staticmethod
@@ -152,6 +180,7 @@ def wkv(
 
     On CUDA tensors this launches the kernel (``wkv.launches`` rises by one);
     it reads r/k/v in their dtype (fp32 or bf16) and w in fp32 or r's dtype.
+    On meta tensors it reports :func:`work`.
     On CPU tensors it runs :func:`ref.wkv_chunked` with the same chunk; a
     ragged last chunk is shorter, which gives what the JAX wrapper's chunk
     ``min(64, L)`` and identity padding (w = 1, k = 0) give.  The chunked
@@ -160,8 +189,8 @@ def wkv(
     ``wkv_chunked``'s; nothing is padded, so the gradient reaches the inputs
     as they are.
     """
-    if r.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"wkv runs on cuda or cpu tensors, not {r.device.type}")
+    if r.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"wkv runs on cuda, cpu or meta tensors, not {r.device.type}")
     return _WKV.apply(r, k, v, w, u)
 
 

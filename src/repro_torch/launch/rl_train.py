@@ -22,18 +22,31 @@ V2G report's ``eval`` records to a JSONL file; ``--profile DIR`` then
 traces one short update (a probe) with its phases annotated and prints the
 trace's path (open it at https://ui.perfetto.dev).  Without ``--device`` it
 runs on the card, and raises where there is none.
+
+Under ``torchrun --nproc_per_node W`` (``WORLD_SIZE`` > 1) each process
+drives ``cuda:LOCAL_RANK`` in an NCCL group (gloo with ``--device cpu``) and
+steps its block of ``num_envs // W`` envs of one global-batch PPO run
+(``make_train(shard_envs=...)``); where W does not divide ``--num-envs``
+every rank runs the whole batch, replicated.  Only rank 0 prints, writes
+``--metrics-out`` and traces ``--profile`` (its probe: one unsharded
+update on rank 0's card)::
+
+    torchrun --nproc_per_node 4 -m repro_torch.launch.rl_train --fused --num-envs 65536
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs, scenarios
 from repro_torch.core import ChargaxEnv, EnvConfig
 from repro_torch.core.state import EnvParams
+from repro_torch.distributed import EnvShard, make_shard_envs
 from repro_torch.rl import evaluate, make_ppo_policy
 from repro_torch.rl.baselines import max_charge_policy, v2g_arbitrage_policy
 from repro_torch.rl.ppo import PPOConfig, make_train
@@ -158,7 +171,54 @@ def v2g_report(
     return results
 
 
+def join_group(args: argparse.Namespace) -> EnvShard | None:
+    """Under ``torchrun`` (``WORLD_SIZE`` > 1): join the process group (NCCL
+    on ``cuda:LOCAL_RANK``, gloo for ``--device cpu``), point ``args.device``
+    at this rank's device and return its :class:`EnvShard`; None alone."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return None
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    if args.device is None or torch.device(args.device).type == "cuda":
+        args.device = f"cuda:{local}"
+        torch.cuda.set_device(local)
+        dist.init_process_group("nccl", device_id=torch.device(args.device))
+    else:
+        dist.init_process_group("gloo")
+    return make_shard_envs(device=args.device)
+
+
+def env_shard_for(num_envs: int, shard: EnvShard | None) -> EnvShard | None:
+    """The shard to train with: ``shard`` where its W ranks divide
+    ``num_envs``; else None, every rank running the whole batch, after the
+    JAX launcher's warning."""
+    if shard is None:
+        return None
+    if num_envs % shard.world:
+        print(
+            f"[ppo] WARNING: num_envs={num_envs} not divisible by "
+            f"{shard.world} devices — env sharding disabled, running replicated"
+        )
+        return None
+    print(f"[ppo] sharding {num_envs} envs over {shard.world} devices")
+    return shard
+
+
 def run_train(args: argparse.Namespace) -> dict:
+    shard = join_group(args)
+    try:
+        quiet = shard is not None and shard.rank > 0
+        with open(os.devnull, "w") if quiet else contextlib.nullcontext() as sink:
+            with contextlib.redirect_stdout(sink) if quiet else contextlib.nullcontext():
+                return _run_train(args, shard)
+    finally:
+        if shard is not None:
+            dist.destroy_process_group()
+
+
+def _run_train(args: argparse.Namespace, shard: EnvShard | None) -> dict:
+    rank0 = shard is None or shard.rank == 0
+    if not rank0:
+        args.metrics_out = args.profile = None
     env = ChargaxEnv(
         EnvConfig(
             scenario=args.scenario,
@@ -181,7 +241,8 @@ def run_train(args: argparse.Namespace) -> dict:
     )
     names = scenario_mix(args.scenarios, args.v2g, args.num_envs)
     stacked = stack_scenarios(env, names, args.preflight) if names else None
-    train = make_train(cfg, env, scenario_params=stacked, device=env.device)
+    shard = env_shard_for(args.num_envs, shard)
+    train = make_train(cfg, env, scenario_params=stacked, device=env.device, shard_envs=shard)
     t0 = time.perf_counter()
     out = train(torch.Generator(device=env.device).manual_seed(args.seed))
     metrics = {k: v.tolist() for k, v in out["metrics"].items()}  # waits for the device
@@ -234,7 +295,7 @@ def run_train(args: argparse.Namespace) -> dict:
                 },
                 kind="train",
             )
-        if args.v2g and names:
+        if args.v2g and names and rank0:
             out["v2g_eval"] = v2g_report(env, names[0], out["runner_state"].params, writer)
     if args.metrics_out:
         print(f"[obs] metrics JSONL: {args.metrics_out}")

@@ -20,6 +20,21 @@ Randomness comes from a ``torch.Generator`` or, for tests, from
 env's arrival draws and the AutoReset's reset draws, and per epoch the
 minibatch permutation, the same seam as the env's
 (:mod:`repro_torch.core.sampling`).
+
+With ``shard_envs`` (an :class:`~repro_torch.distributed.EnvShard`, one
+process per card in a ``torch.distributed`` group of W) rank ``r`` steps the
+envs ``[r·B/W, (r+1)·B/W)`` and the update is the unsharded run's global-batch
+update: every rank draws the same permutation of the ``T·B`` flat batch and
+takes the entries of each minibatch that fall in its block; the loss's
+means are local sums over the global minibatch size, GAE's normalisation
+takes its mean and centred sum of squares from all-reduced fp64 sums, the
+gradients are summed over the ranks before the clip, and the metrics' env
+means are all-reduced.  A :class:`ReplayDraws` is cut into each rank's env
+columns (its permutations stay whole).  From a generator, each rank draws
+its envs' randomness (actions, arrivals, resets) from a generator seeded by
+(seed, rank), and the weights and permutations from the run's generator; at
+W = 1 that is the run's generator for all of them, so the sharded run is the
+unsharded one.  JAX's draws do not depend on where the rows live; these do.
 """
 from __future__ import annotations
 
@@ -32,6 +47,7 @@ import torch
 from repro_torch.core.env import ChargaxEnv
 from repro_torch.core.sampling import ArrivalDraws, ResetDraws
 from repro_torch.core.state import EnvParams
+from repro_torch.distributed.env_sharding import EnvShard
 from repro_torch.envs.wrappers import AutoReset, AutoResetDraws, LogState, LogWrapper
 from repro_torch.obs.trace import annotate
 from repro_torch.optim import (
@@ -45,7 +61,7 @@ from repro_torch.optim import (
 from repro_torch.rl import networks
 from repro_torch.rl.networks import ActorCritic
 from repro_torch.scenarios.stacking import expand_params, num_scenarios
-from repro_torch.utils import resolve_device
+from repro_torch.utils import map_leaves, resolve_device
 
 Tensor = torch.Tensor
 
@@ -129,17 +145,14 @@ class ReplayDraws:
     perms: list[Tensor]  # (batch_size,) int64, one per epoch, over all updates
 
     def to(self, device: torch.device | str) -> "ReplayDraws":
-        return _to(self, torch.device(device))
+        device = torch.device(device)
+        return map_leaves(lambda t: t.to(device), self)
 
-
-def _to(x: Any, device: torch.device) -> Any:
-    if isinstance(x, Tensor):
-        return x.to(device)
-    if isinstance(x, list):
-        return [_to(v, device) for v in x]
-    return dataclasses.replace(
-        x, **{f.name: _to(getattr(x, f.name), device) for f in dataclasses.fields(x)}
-    )
+    def envs(self, lo: int, hi: int) -> "ReplayDraws":
+        """The draws of envs ``[lo, hi)``: the reset's and every step's env
+        columns; the permutations of the whole batch stay whole."""
+        cut = lambda t: t[lo:hi]  # noqa: E731
+        return ReplayDraws(map_leaves(cut, self.reset), map_leaves(cut, self.steps), self.perms)
 
 
 class _Replay:
@@ -169,6 +182,15 @@ class RunnerState(NamedTuple):
     obs: Tensor
     rng: torch.Generator | _Replay
     update_idx: int
+    # a sharded run's generator of the weights and permutations, the same on
+    # every rank, where ``rng`` draws this rank's envs (None: ``rng`` does all)
+    perm_rng: torch.Generator | None = None
+
+
+def _rank_generator(rng: torch.Generator, rank: int) -> torch.Generator:
+    """A generator of rank ``rank``'s env draws, seeded by (seed, rank)."""
+    seed = (rng.initial_seed() * 1_000_003 + rank + 1) % 2**63
+    return torch.Generator(device=rng.device).manual_seed(seed)
 
 
 def compute_gae(
@@ -199,8 +221,10 @@ class PPOTrain:
 
     ``init``, ``rollout``, ``advantages``, ``learn`` and ``metrics`` are its
     parts, in the order :meth:`update` runs them.  ``lowered_env_params`` are
-    the params every step reads; ``scenario_shape`` is ``(S, num_envs // S)``
-    when training across a scenario stack, else None.
+    the params every step reads (this rank's envs' rows, sharded);
+    ``scenario_shape`` is ``(S, num_envs // S)`` when training across a
+    scenario stack, else None; ``num_envs`` is the envs this process steps
+    (``config.num_envs // W`` sharded) and ``shard`` the :class:`EnvShard`.
     """
 
     def __init__(
@@ -210,6 +234,7 @@ class PPOTrain:
         env_params: EnvParams,
         kpi_metrics: tuple[str, ...],
         device: torch.device,
+        shard: EnvShard | None = None,
     ):
         self.config = config
         self.env = env
@@ -217,6 +242,8 @@ class PPOTrain:
         n_scen = num_scenarios(env_params)
         self.scenario_shape = None if n_scen is None else (n_scen, config.num_envs // n_scen)
         self.device = device
+        self.shard = shard
+        self.num_envs = config.num_envs if shard is None else config.num_envs // shard.world
         self.wenv = LogWrapper(AutoReset(env), metrics=tuple(kpi_metrics))
         self.n_heads = env.action_space.shape[-1]
         self.n_actions = env.action_space.num_categories
@@ -232,9 +259,12 @@ class PPOTrain:
     ) -> RunnerState:
         """Weights (a copy of ``params``, or drawn from the generator), the
         optimiser state and the first reset."""
+        perm_rng = None
         if isinstance(rng, ReplayDraws):
             if params is None:
                 raise ValueError("a replay carries no weights: pass params")
+            if self.shard is not None:
+                rng = rng.envs(*self.shard.block(self.config.num_envs))
             replay = rng.to(self.device)
             cursor: torch.Generator | _Replay = _Replay(replay)
             reset_rng: torch.Generator | ResetDraws = replay.reset
@@ -245,17 +275,18 @@ class PPOTrain:
                 params = ActorCritic(
                     self.obs_dim, self.n_heads, self.n_actions, self.config.hidden, seed=seed
                 )
+            if self.shard is not None and self.shard.world > 1:
+                perm_rng, cursor = rng, _rank_generator(rng, self.shard.rank)
+                reset_rng = cursor
         net = copy.deepcopy(params).to(self.device)
         opt_state = adamw_init(dict(net.named_parameters()))
-        obs, env_state = self.wenv.reset(
-            reset_rng, self.lowered_env_params, num_envs=self.config.num_envs
-        )
-        return RunnerState(net, opt_state, env_state, obs, cursor, 0)
+        obs, env_state = self.wenv.reset(reset_rng, self.lowered_env_params, num_envs=self.num_envs)
+        return RunnerState(net, opt_state, env_state, obs, cursor, 0, perm_rng)
 
     def rollout(self, runner: RunnerState) -> tuple[RunnerState, Transition]:
         """``rollout_steps`` env steps under the current policy."""
         cfg, dev = self.config, self.device
-        t_steps, b = cfg.rollout_steps, cfg.num_envs
+        t_steps, b = cfg.rollout_steps, self.num_envs
         net, rng = runner.params, runner.rng
         obs, env_state = runner.obs, runner.env_state
         traj = Transition(
@@ -309,22 +340,32 @@ class PPOTrain:
         old_log_prob: Tensor,
         gae: Tensor,
         targets: Tensor,
+        *,
+        gae_stats: tuple[Tensor, Tensor] | None = None,
+        size: int | None = None,
     ) -> tuple[Tensor, dict[str, Tensor]]:
-        """The clipped PPO objective on one minibatch: ``(total, aux)``."""
+        """The clipped PPO objective on one minibatch: ``(total, aux)``.
+
+        A rank's share of a sharded minibatch passes the minibatch's GAE mean
+        and std (``gae_stats``) and its global ``size``: each mean is then the
+        share's sum over ``size``, and the ranks' totals add up to the
+        minibatch's objective."""
         cfg = self.config
+        mean = Tensor.mean if size is None else (lambda x: x.sum() / size)
         out = net(obs)
         log_prob = networks.log_prob(out.logits, action)
         ratio = torch.exp(log_prob - old_log_prob)
         # jnp.std is the population std
-        gae_n = (gae - gae.mean()) / (gae.std(correction=0) + 1e-8)
+        gae_mean, gae_std = (gae.mean(), gae.std(correction=0)) if gae_stats is None else gae_stats
+        gae_n = (gae - gae_mean) / (gae_std + 1e-8)
         pg1 = ratio * gae_n
         pg2 = ratio.clamp(1 - cfg.clip_eps, 1 + cfg.clip_eps) * gae_n
-        pg_loss = -torch.minimum(pg1, pg2).mean()
+        pg_loss = -mean(torch.minimum(pg1, pg2))
         v_clip = old_value + (out.value - old_value).clamp(-cfg.vf_clip, cfg.vf_clip)
         v_losses = (out.value - targets).square()
         v_losses_clip = (v_clip - targets).square()
-        v_loss = 0.5 * torch.maximum(v_losses, v_losses_clip).mean()
-        ent = networks.entropy(out.logits).mean()
+        v_loss = 0.5 * mean(torch.maximum(v_losses, v_losses_clip))
+        ent = mean(networks.entropy(out.logits))
         total = pg_loss + cfg.vf_coef * v_loss - cfg.ent_coef * ent
         return total, {"pg_loss": pg_loss, "v_loss": v_loss, "entropy": ent}
 
@@ -334,6 +375,8 @@ class PPOTrain:
         """``update_epochs`` passes over the trajectory, each in
         ``num_minibatches`` AdamW steps over a fresh permutation.  Returns
         the per-step losses stacked, (epochs * minibatches,) each."""
+        if self.shard is not None:
+            return self._learn_sharded(runner, traj, gae, targets)
         cfg = self.config
         bs, mb = cfg.batch_size, cfg.minibatch_size
 
@@ -365,6 +408,83 @@ class PPOTrain:
             losses = {k: torch.stack(v) for k, v in history.items()}
         return runner._replace(opt_state=opt_state), losses
 
+    def _local_minibatches(self, perm: Tensor) -> tuple[Tensor, Tensor, list[int]]:
+        """This rank's entries of a permutation of the global flat batch
+        (``t·B + b``, time-major): their local flat indices (``t·B_r + b - lo``)
+        in the permutation's order, the minibatch of each, and how many fall
+        in each minibatch (one wait for the device, per epoch)."""
+        cfg, b_local = self.config, self.num_envs
+        lo, hi = self.shard.block(cfg.num_envs)
+        env = perm % cfg.num_envs
+        pos = ((env >= lo) & (env < hi)).nonzero().squeeze(1)
+        mine = perm[pos]
+        local = (mine // cfg.num_envs) * b_local + (mine % cfg.num_envs - lo)
+        which = pos // cfg.minibatch_size
+        counts = torch.bincount(which, minlength=cfg.num_minibatches).tolist()
+        return local, which, counts
+
+    def _learn_sharded(
+        self, runner: RunnerState, traj: Transition, gae: Tensor, targets: Tensor
+    ) -> tuple[RunnerState, dict[str, Tensor]]:
+        """:meth:`learn` on this rank's envs: the global minibatches, each
+        rank taking its entries; see the module docstring."""
+        cfg, shard = self.config, self.shard
+        n_mb, mb = cfg.num_minibatches, cfg.minibatch_size
+        bs = cfg.rollout_steps * self.num_envs
+
+        def flat(x: Tensor) -> Tensor:  # (T, B_r, ...) -> (T*B_r, ...), row-major
+            return x.reshape((bs,) + x.shape[2:])
+
+        obs, action, value, log_prob = (flat(x) for x in (traj.obs, traj.action, traj.value, traj.log_prob))
+        gae, targets = flat(gae), flat(targets)
+        net, opt_state = runner.params, runner.opt_state
+        params = dict(net.named_parameters())
+        history: dict[str, list[Tensor]] = {}
+        with annotate("ppo/update"):
+            for _ in range(cfg.update_epochs):
+                if isinstance(runner.rng, _Replay):
+                    perm = runner.rng.permutation()
+                else:
+                    gen = runner.perm_rng or runner.rng
+                    perm = torch.randperm(cfg.batch_size, generator=gen, device=self.device)
+                local, which, counts = self._local_minibatches(perm)
+                # GAE's mean and population std per minibatch: two passes over
+                # all-reduced sums, accumulated in fp64 (a minibatch's sum runs
+                # over up to T·B/M values; fp32 atomics would lose its low digits)
+                share = gae[local].double()
+                sums = torch.zeros(n_mb, dtype=torch.float64, device=self.device)
+                mean = shard.all_reduce(sums.index_add(0, which, share)) / mb
+                sq = (share - mean[which]).square()
+                std = (shard.all_reduce(sums.index_add(0, which, sq)) / mb).sqrt()
+                mean, std = mean.float(), std.float()
+                for i, idx in enumerate(local.split(counts)):
+                    total, aux = self.loss(
+                        net, obs[idx], action[idx], value[idx], log_prob[idx], gae[idx], targets[idx],
+                        gae_stats=(mean[i], std[i]), size=mb,
+                    )
+                    grads = torch.autograd.grad(total, list(params.values()))
+                    summed = shard.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
+                    grads = [g.view_as(p) for g, p in zip(summed.split([p.numel() for p in params.values()]), params.values())]
+                    opt_state, gnorm = adamw_step_(
+                        dict(zip(params, grads)), opt_state, params, self.lr, self.opt_config
+                    )
+                    for k, v in {"loss": total, "grad_norm": gnorm, **aux}.items():
+                        history.setdefault(k, []).append(v.detach())
+            losses = {k: torch.stack(v) for k, v in history.items()}
+            # each rank's share of every minibatch's loss terms, summed; the norm is global already
+            parts = [k for k in losses if k != "grad_norm"]
+            summed = shard.all_reduce(torch.stack([losses[k] for k in parts]))
+            losses.update(zip(parts, summed))
+        return runner._replace(opt_state=opt_state), losses
+
+    def _env_means(self, means: dict[str, Tensor]) -> dict[str, Tensor]:
+        """Means over this process's envs, made means over the global batch
+        (every rank holds as many envs) when sharded."""
+        if self.shard is None:
+            return means
+        summed = self.shard.all_reduce(torch.stack(list(means.values()))) / self.shard.world
+        return dict(zip(means, summed))
+
     def metrics(
         self,
         before: RunnerState,
@@ -375,14 +495,12 @@ class PPOTrain:
         """One update's metrics, device scalars."""
         cfg = self.config
         env_state = after.env_state
-        out = {
-            "mean_step_reward": traj.reward.mean() / cfg.reward_scale,
-            "rollout_reward": traj.reward.sum(0).mean() / cfg.reward_scale,
-            "mean_daily_profit": traj.info["profit"].mean() * self.env.config.episode_steps,
+        means = {
+            "mean_step_reward": traj.reward.mean(),
+            "rollout_reward": traj.reward.sum(0).mean(),
+            "mean_daily_profit": traj.info["profit"].mean(),
             "missing_kwh": traj.info["missing_kwh"].mean(),
             "rejected": traj.info["rejected"].mean(),
-            "loss": losses["loss"].mean(),
-            "entropy": losses["entropy"].mean(),
             # LogWrapper's accounting: the last finished episode of each env
             "episode_return": env_state.returned_episode_return.mean(),
             "episode_length": env_state.returned_episode_length.float().mean(),
@@ -390,9 +508,23 @@ class PPOTrain:
         if env_state.metrics is not None:
             # this update's KPI window: batch-mean per-env-step rates
             delta = env_state.metrics.since(before.env_state.metrics)
-            steps = delta.count.mean().clamp_min(1.0)
-            for n, s in delta.sums.items():
-                out[f"kpi/{n}"] = s.mean() / steps
+            means["steps"] = delta.count.mean()
+            means.update({f"kpi/{n}": s.mean() for n, s in delta.sums.items()})
+        means = self._env_means(means)
+        out = {
+            "mean_step_reward": means["mean_step_reward"] / cfg.reward_scale,
+            "rollout_reward": means["rollout_reward"] / cfg.reward_scale,
+            "mean_daily_profit": means["mean_daily_profit"] * self.env.config.episode_steps,
+            "missing_kwh": means["missing_kwh"],
+            "rejected": means["rejected"],
+            "loss": losses["loss"].mean(),
+            "entropy": losses["entropy"].mean(),
+            "episode_return": means["episode_return"],
+            "episode_length": means["episode_length"],
+        }
+        if "steps" in means:
+            steps = means["steps"].clamp_min(1.0)
+            out.update({k: v / steps for k, v in means.items() if k.startswith("kpi/")})
         return out
 
     def update(self, runner: RunnerState) -> tuple[RunnerState, dict[str, Tensor]]:
@@ -425,6 +557,7 @@ def make_train(
     *,
     scenario_params: EnvParams | None = None,
     device: torch.device | str | None = None,
+    shard_envs: EnvShard | None = None,
 ) -> PPOTrain:
     """Build the training run: ``train(rng, params=None) -> {runner_state, metrics}``.
 
@@ -436,6 +569,11 @@ def make_train(
     trains one agent across them: env ``b`` runs scenario ``b // (num_envs //
     S)``, so every rollout mixes all S worlds and the minibatches interleave
     them, while the device holds one copy of each scenario's tables.
+
+    ``shard_envs`` (:func:`repro_torch.distributed.make_shard_envs`) runs
+    this process's block of ``num_envs // W`` envs in the global-batch
+    update (see the module docstring); ``num_envs`` must split over the W
+    ranks, and a scenario stack's per-env rows are each rank's own.
     """
     device = resolve_device(device)
     if env.device != device:
@@ -445,10 +583,20 @@ def make_train(
             f"batch of {config.batch_size} transitions does not split into "
             f"{config.num_minibatches} minibatches"
         )
+    block = None
+    if shard_envs is not None:
+        if shard_envs.device != device:
+            raise ValueError(f"the shard runs on {shard_envs.device}, make_train was asked for {device}")
+        block = shard_envs.block(config.num_envs)
     if scenario_params is not None:
         if env_params is not None:
             raise ValueError("pass either env_params or scenario_params, not both")
-        env_params = expand_params(scenario_params, config.num_envs)
+        env_params = expand_params(scenario_params, config.num_envs, envs=block)
     else:
         env_params = env_params if env_params is not None else env.default_params
-    return PPOTrain(config, env, env_params, tuple(kpi_metrics), device)
+        if block is not None and env_params.env_scenario is not None:
+            raise ValueError(
+                "sharded training takes one world's params or scenario_params, not "
+                "params with per-env rows: pass scenario_params"
+            )
+    return PPOTrain(config, env, env_params, tuple(kpi_metrics), device, shard_envs)

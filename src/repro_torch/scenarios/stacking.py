@@ -112,11 +112,15 @@ def num_scenarios(params: EnvParams) -> int | None:
     return params.price_buy_table.shape[0] if params.price_buy_table.dim() == 3 else None
 
 
-def expand_params(stacked: EnvParams, num_envs: int) -> EnvParams:
+def expand_params(
+    stacked: EnvParams, num_envs: int, envs: tuple[int, int] | None = None
+) -> EnvParams:
     """A stack of S scenarios serving ``num_envs`` envs in S contiguous
     blocks: env ``b`` belongs to scenario ``b // (num_envs // S)``, as in the
     JAX package's nested (S, num_envs // S) layout.  The tables keep their
-    scenario axis; the other scenario fields are gathered to a row per env."""
+    scenario axis; the other scenario fields are gathered to a row per env.
+    ``envs = (lo, hi)`` gives the rows of envs ``[lo, hi)`` of the
+    ``num_envs`` only (a rank's block of a sharded batch)."""
     s = num_scenarios(stacked)
     if s is None or stacked.env_scenario is not None:
         raise ValueError("expand_params takes a stack from stack_params")
@@ -126,7 +130,8 @@ def expand_params(stacked: EnvParams, num_envs: int) -> EnvParams:
             "scenario takes num_envs // S envs, so an uneven split would drop "
             "scenarios or skew the training mixture; adjust num_envs"
         )
-    scen = torch.arange(num_envs, device=stacked.price_buy_table.device) // (num_envs // s)
+    lo, hi = (0, num_envs) if envs is None else envs
+    scen = torch.arange(lo, hi, device=stacked.price_buy_table.device) // (num_envs // s)
     rows = {name: getattr(stacked, name)[scen] for name in _ROW_FIELDS}
     weights = RewardWeights(
         **{f.name: getattr(stacked.weights, f.name)[scen] for f in dataclasses.fields(RewardWeights)}

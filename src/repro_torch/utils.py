@@ -1,4 +1,5 @@
-"""Small shared utilities: unit constants, dataclass replace, device choice."""
+"""Small shared utilities: unit constants, dataclass replace, a map over
+nested containers, device choice."""
 from __future__ import annotations
 
 import dataclasses
@@ -18,6 +19,25 @@ def steps_per_day(dt_minutes: float) -> int:
 def replace(obj: _T, **kwargs: Any) -> _T:
     """dataclasses.replace that reads nicely at call sites."""
     return dataclasses.replace(obj, **kwargs)
+
+
+def map_leaves(fn: Any, tree: Any) -> Any:
+    """``fn`` over every leaf of a tree of lists, tuples (named or not),
+    dicts and dataclass instances; ``None`` stays ``None``."""
+    if tree is None:
+        return None
+    if isinstance(tree, list):
+        return [map_leaves(fn, v) for v in tree]
+    if isinstance(tree, tuple):
+        items = [map_leaves(fn, v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    if isinstance(tree, dict):
+        return {k: map_leaves(fn, v) for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(
+            tree, **{f.name: map_leaves(fn, getattr(tree, f.name)) for f in dataclasses.fields(tree)}
+        )
+    return fn(tree)
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:

@@ -266,9 +266,12 @@ def test_cpu_tensors_run_the_plain_version_without_a_launch():
 
 def test_wrapper_refuses_other_devices():
     env = _env("paper_16")
+    # a meta tensor launches nothing: its branch returns empty outputs
     meta = PoleSlabs(*(x.to("meta") for x in _random_slabs(env, 2, seed=4)))
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        ops.chargax_step(meta, env.default_params.pole, DT)
+    before = ops.chargax_step.launches
+    out = ops.chargax_step(meta, env.default_params.pole, DT)
+    assert [o.device.type for o in out] == ["meta"] * 7 and out.current.shape == meta.target.shape
+    assert ops.chargax_step.launches == before
 
 
 # the fleet of benchmarks/fleet_throughput.py: 16/16/8 EVSEs and 3/5/1 nodes,
