@@ -123,9 +123,10 @@ Phases, in order (any failure raises and the script exits non-zero):
    scenario's mean requested power, which bind) at phase 3's tolerance;
 23. PPO across the pack at full width, as ``rl_train --fused --v2g
    --num-envs 16384`` drives it: 16384 envs x 300 steps, 4 x 4 minibatches,
-   hidden (128, 128), Table 3, fp32 with TF32 off, 4 updates from seed 0
+   hidden (128, 128), Table 3, fp32 with TF32 off, 2 updates (4 until phase
+   43 needed the time) from seed 0
    through ``make_train(scenario_params=...)``'s parts with CUDA events:
-   exactly 1200 ``chargax_step`` launches and no other kernel of ours, one
+   exactly 600 ``chargax_step`` launches and no other kernel of ours, one
    copy of each table per scenario (``lowered_env_params``, leading axis
    4), per-update rollout / GAE / update ms, rollout reward and training
    env-steps/s, peak memory, a profile of one more rollout, then the
@@ -203,7 +204,7 @@ Phases, in order (any failure raises and the script exits non-zero):
    checkpoint's leaves bit-identical; a run sent SIGTERM after its 2nd step
    exits 0 with a checkpoint;
 33. tinyllama-1.1b training at full width and depth (22 layers, bf16
-   parameters, fp32 moments, B 8 x L 2048 synthetic tokens, lr 1e-3, 20
+   parameters, fp32 moments, B 8 x L 2048 synthetic tokens, lr 1e-3, 12
    steps from ``init`` seed 0) through ``make_train_step``, CUDA events
    around each step and every kernel count reset just before it: exactly 44
    flash launches a step (22 layers, each forward run again by its remat
@@ -242,8 +243,8 @@ Phases, in order (any failure raises and the script exits non-zero):
    bf16; whisper-base's encoder (8 x 1500 frames, non-causal, fp32) and
    cross-attention (448 queries over 1500 keys, fp32);
 37. the new models on the card against the CPU: granite-moe-3b-a800m,
-   qwen3-moe-30b-a3b and gemma2-9b at full width cut to 2 layers (gemma2:
-   one local/global pair), whisper-base to 2 encoder and 2 decoder layers,
+   gemma2-9b at full width cut to 2 layers (gemma2: one local/global pair),
+   qwen3-moe-30b-a3b to 1 (2 until phase 43 needed the time), whisper-base to 2 encoder and 2 decoder layers,
    fp32, TF32 off, the same weights and B 2 x L 256 (whisper: and 1500
    frames): last-position logits at phase 10's limit; one training step's
    loss and gradients at phase 31's for granite, gemma2 and whisper; every
@@ -261,7 +262,7 @@ Phases, in order (any failure raises and the script exits non-zero):
    ms, peak memory, and each ``init``'s peak over its weights
    (qwen3-moe-30b-a3b's within 2 GB of its 61 GB);
 39. granite-moe-3b-a800m training at full width and depth (B 8 x L 2048,
-   bf16, lr 1e-3, 12 steps): exactly 64 flash launches a step, loss finite
+   bf16, lr 1e-3, 10 steps): exactly 64 flash launches a step, loss finite
    and its last 5 steps' mean below its first 5's, step and host issue ms,
    tokens/s, peak memory, the MoE aux loss a step; one step under
    ``torch.profiler`` with the share of the MoE dispatch/combine einsums
@@ -292,14 +293,26 @@ Phases, in order (any failure raises and the script exits non-zero):
    prefill at 4 x 4096, each beside its measured median from phases 33,
    39, 11 and 16: the roofline step, its bottleneck, measured over
    roofline, and the model-FLOP share ``model_flops / (measured_s x 989e12)``,
-   the card's name and power limit on every line.
+   the card's name and power limit on every line;
+43. the paper's results at small budgets (``repro_torch.bench``; their full
+   runs go through ``python -m repro_torch.bench.run``): the grid claim held
+   in full, its two KPI episodes at batch 1 through the fused step
+   (``grid_aware``'s largest feeder violation exactly 0 over the episode,
+   max-charge's violation, profit and reward beside it); the V2G module with
+   one PPO update across ``V2G_MIXED_PACK``, its baselines evaluated on
+   ``v2g_shopping_tou`` over 32 episodes and their profits printed; Fig. 4a
+   (low traffic, one seed), Fig. 4b/c and Fig. 5 with one PPO update each
+   and 4 evaluation episodes; every module's rows by the JAX module's
+   names with finite values, and its ``chargax_step`` launches exactly as its
+   episodes, rollouts and updates give them (the PPO claims need the full
+   budgets and are not asserted here).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and before that a ``{"kernels": [...]}``
 line with all four kernels (``chargax_step``'s launches summed over the
 episode of phase 4, the training of phases 20 and 23, the sweep of phase 24,
-the fleet phases 25-27, the telemetry phase 28, the sharded phase 40 and
-the bridge of phase 41, by path, with the fleet
+the fleet phases 25-27, the telemetry phase 28, the sharded phase 40, the
+bridge of phase 41 and the paper's results of phase 43, by path, with the fleet
 route's pack times; each LM kernel's launches summed over its prefill and
 its training steps of phases 33-34 and 38-39, by path; flash also with
 phase 36's shapes).  Needs the repository's
@@ -336,6 +349,7 @@ import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.analysis import roofline  # noqa: E402
+from repro_torch.bench import grid, ppo_shopping, price_shift, satisfaction_sweep, v2g  # noqa: E402
 from repro_torch.configs.registry import build_model, get_config  # noqa: E402
 from repro_torch import city, scenarios  # noqa: E402
 from repro_torch.core import ChargaxEnv, EnvConfig, FleetEnv, sampling, transition  # noqa: E402
@@ -442,7 +456,7 @@ PPO_ENVS_OFF = 8
 # the scenario phases (22-24): envs of the stacked card-vs-CPU episode (16 per
 # scenario of the 4-scenario V2G mix) and PPO updates across the mix
 MIX_CHECK_ENVS = 64
-MIX_UPDATES = 4
+MIX_UPDATES = 2
 # the fleet phases (25-27): the mix of benchmarks/fleet_throughput.py, padded
 # to 16 EVSEs + battery (P = 17) and 5 nodes; 16 fleets for the card-vs-CPU
 # episode (48 stations), 5461 at full size (16383 stations)
@@ -460,12 +474,13 @@ CITY_ARCHS = ("paper_16", "deep_4x4", "single_dc_8", "paper_16")
 CITY_SCENARIO = "city_ring_evening"
 CITY_CANDIDATES = 4096
 # LM training (phases 30-35): tinyllama-1.1b (arXiv:2401.02385) at B 8 x its
-# 2048-token context, 20 steps (30 until phases 40-42 needed the time) at the
+# 2048-token context, 12 steps (30 until phases 40-42, 20 until phase 43 needed
+# the time) at the
 # JAX trainer test's lr 1e-3 with the default 100-step warmup; zamba2-1.2b
 # and rwkv6-3b at B 2 (rwkv6-3b's
 # weights, gradients and fp32 moments take ~37 GB before activations)
 TINY = "tinyllama-1.1b"
-TRAIN_B, TRAIN_L, TRAIN_STEPS, TRAIN_LR = 8, 2048, 20, 1e-3
+TRAIN_B, TRAIN_L, TRAIN_STEPS, TRAIN_LR = 8, 2048, 12, 1e-3
 SCAN_TRAIN_B, SCAN_TRAIN_STEPS = 2, 5
 WITNESS_FP32_STEPS = 3  # rwkv6-3b's fp32 witness: the first 3 of its 5 steps (their rise shows by step 3)
 CHECK_B, CHECK_L = 2, 256  # phase 31's card-against-CPU batch
@@ -491,7 +506,7 @@ FA_SLICE_CASES = [
 # expert gradients for no path that trains it)
 SLICE_CHECK = {
     GRANITE: (dict(n_layers=2), 2, 4),
-    QWEN_MOE: (dict(n_layers=2), 2, None),
+    QWEN_MOE: (dict(n_layers=1), 1, None),
     GEMMA: (dict(n_layers=2), 2, 4),
     WHISPER: (dict(n_layers=2, n_enc_layers=2), 6, 12),
 }
@@ -504,10 +519,10 @@ SLICE_SERVE = {
     WHISPER: (4, 448, 6 + 12, 6),  # Whisper's 448-token text context over 1500 frames; generate encodes once
 }
 INIT_SLACK_BYTES = 2e9  # qwen3-moe-30b-a3b's init may take this much over its 61 GB of weights
-# phase 39: granite-moe-3b-a800m as tinyllama (B 8 x L 2048, lr 1e-3), 12
-# steps (its first and last 5 apart); whisper-base at B 8 x 448 text tokens
+# phase 39: granite-moe-3b-a800m as tinyllama (B 8 x L 2048, lr 1e-3), 10
+# steps (its first and last 5 apart; 12 until phase 43 needed the time); whisper-base at B 8 x 448 text tokens
 # with 1500 frames, 10 steps
-MOE_TRAIN_STEPS = 12
+MOE_TRAIN_STEPS = 10
 WHISPER_TRAIN_B, WHISPER_TRAIN_L, WHISPER_TRAIN_STEPS = 8, 448, 10
 # phase 40: the sharded path at world 1 (an NCCL group of this process):
 # SHARD_UPDATES PPO updates of phase 20's shape from one seed, sharded and
@@ -527,6 +542,16 @@ ROOFLINE_CELLS = [
     (ZAMBA, ShapeConfig("prefill_4x4096", PREFILL_L, PREFILL_B, "prefill"), 11),
     (RWKV, ShapeConfig("prefill_4x4096", PREFILL_L, PREFILL_B, "prefill"), 16),
 ]
+# phase 43: the paper's results at small budgets, each module's rows by the
+# JAX module's names
+BENCH_UPDATES = 1
+BENCH_N_EVAL = 4
+BENCH_ROWS = {
+    "v2g": ["v2g_steps_off", "v2g_steps_on", "v2g_ppo_mixed_train", "v2g_profit_ppo", "v2g_profit_v2g_arbitrage"],
+    "ppo_shopping": ["fig4a_low"],
+    "satisfaction_sweep": ["fig4b_alpha_0", "fig4b_alpha_1", "fig4b_alpha_4"],
+    "price_shift": ["fig5_train_2021", "fig5_train_2022", "fig5_train_2023"],
+}
 # (b, hq, hkv, l, d): GQA at 512, D = 128 with a ragged L, tinyllama's
 # training shape; fp32 on the CUDA-core route
 FA_GRAD_SHAPES = [((2, 8, 2, 512, 64), torch.bfloat16), ((1, 4, 4, 300, 128), torch.bfloat16),
@@ -3220,6 +3245,74 @@ def roofline_against_card(card: str, measured_ms: dict) -> dict:
     return out
 
 
+def paper_bench(dev: torch.device, card: str) -> dict:
+    """Phase 43: the grid claim held in full (its two KPI episodes), then
+    each PPO module of ``repro_torch.bench`` once at a small budget (Fig. 4a
+    at low traffic), its rows by the JAX module's names with finite values;
+    each part's ``chargax_step`` launches exactly as its episodes, rollouts
+    and updates give them."""
+    episode = EnvConfig().episode_steps
+    ppo_steps = ppo_shopping.NUM_ENVS * ppo_shopping.ROLLOUT_STEPS * BENCH_UPDATES
+    v2g_steps = v2g.PPO_NUM_ENVS * v2g.QUICK["rollout_steps"] * BENCH_UPDATES
+    update = BENCH_UPDATES * ppo_shopping.ROLLOUT_STEPS  # launches of a module's PPO run
+    out = {"launches_by_module": {}, "seconds": {}, "rows": {}, "summaries": {}}
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    kpis = grid.kpi_episodes(dev)
+    out["seconds"]["grid"] = time.perf_counter() - t0
+    counts = launch_counts()
+    check(counts == {**dict.fromkeys(counts, 0), "chargax_step": 2 * episode},
+          f"phase 43 grid launches {counts}, expected {2 * episode} chargax_step")
+    out["launches_by_module"]["grid"] = 2 * episode
+    out["summaries"]["grid"] = {"kpis": kpis, **grid.claims(kpis)}
+    ga, mx = kpis["grid_aware"], kpis["max_charge"]
+    check(ga["violation_kw_max"] == 0.0, f"phase 43 grid_aware overshot the feeder cap: {ga}")
+    print(f"paper_bench grid claim on {grid.TIGHT_SCENARIO}, batch 1, fused step [{card}]: grid_aware largest "
+          f"violation {ga['violation_kw_max']} kW (exactly 0), profit {ga['profit']:.2f}, reward {ga['reward']:.2f}; "
+          f"max_charge largest violation {mx['violation_kw_max']:.2f} kW, summed {mx['violation_kw_sum']:.2f} kW, "
+          f"profit {mx['profit']:.2f}, reward {mx['reward']:.2f}")
+
+    runs = {
+        # v2g: its throughput rollouts (off and on, each warm-up and timed),
+        # the update, the three evaluations
+        "v2g": (v2g, lambda: v2g.run(quick=True, total_timesteps=v2g_steps, device=dev),
+                4 * v2g.QUICK["steps"] + BENCH_UPDATES * v2g.QUICK["rollout_steps"] + 3 * episode),
+        "ppo_shopping": (ppo_shopping, lambda: ppo_shopping.run(quick=True, seeds=1, traffic=("low",),
+                                                                total_timesteps=ppo_steps, n_eval=BENCH_N_EVAL,
+                                                                device=dev),
+                         2 * episode + update),
+        "satisfaction_sweep": (satisfaction_sweep, lambda: satisfaction_sweep.run(
+                                   quick=True, total_timesteps=ppo_steps, n_eval=BENCH_N_EVAL, device=dev),
+                               len(satisfaction_sweep.ALPHAS) * (episode + update)),
+        "price_shift": (price_shift, lambda: price_shift.run(quick=True, total_timesteps=ppo_steps,
+                                                             n_eval=BENCH_N_EVAL, device=dev),
+                        len(price_shift.YEARS) * (len(price_shift.YEARS) * episode + update)),
+    }
+    for name, (mod, fn, expect) in runs.items():
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rows = fn()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        check([r[0] for r in rows] == BENCH_ROWS[name], f"phase 43 {name} rows {[r[0] for r in rows]}")
+        check(all(math.isfinite(r[1]) for r in rows), f"phase 43 {name} non-finite rows {rows}")
+        check(counts == {**dict.fromkeys(counts, 0), "chargax_step": expect},
+              f"phase 43 {name} launches {counts}, expected {expect} chargax_step")
+        summary = mod.LAST_SUMMARY
+        out["launches_by_module"][name], out["seconds"][name] = expect, seconds
+        out["rows"][name], out["summaries"][name] = rows, summary
+        print(f"paper_bench {name} [{card}]: {len(rows)} rows in {seconds:.1f} s, {expect} chargax_step launches")
+        for rname, val, derived in rows:
+            print(f"  {rname},{val:.3f},{derived}")
+    s = out["summaries"]["v2g"]
+    print(f"paper_bench v2g baselines on {v2g.TOU_SCENARIO}, {v2g.N_EVAL} episodes [{card}]: max_charge daily profit "
+          f"{s['profit_max_charge_baseline']}, v2g_arbitrage {s['profit_v2g_arbitrage']} "
+          f"(discharged {s['discharged_kwh_arbitrage']} kWh); ppo after {BENCH_UPDATES} update {s['profit_ppo']}")
+    out["launches"] = sum(out["launches_by_module"].values())
+    return out
+
+
 def check_kpis(result: dict, label: str) -> None:
     check(all(math.isfinite(v) for v in result.values()), f"{label}: non-finite KPIs {result}")
     check(result["energy_delivered_kwh"] > 0, f"{label}: no energy delivered")
@@ -3571,6 +3664,12 @@ def main() -> int:
     phase_s[42] = time.perf_counter() - lap
     print("last phases, host s: " + " ".join(f"{k}={phase_s[k]:.1f}" for k in range(40, 43)))
 
+    # --- 43. the paper's results at small budgets --------------------------------------------------
+    lap = time.perf_counter()
+    bench = paper_bench(dev, card)
+    phase_s[43] = time.perf_counter() - lap
+    print(f"paper's results phase, host s: 43={phase_s[43]:.1f}")
+
     metrics = {
         "env_steps_per_s": env_steps_per_s,
         "episode_s": episode_s,
@@ -3596,6 +3695,7 @@ def main() -> int:
         "sharded_world1": sharded,
         "gym_bridge": bridge,
         "roofline": roof,
+        "paper_bench": {k: v for k, v in bench.items() if k != "rows"},
         "phases_s": phase_s,
     }
     print(json.dumps({"metrics": metrics}))
@@ -3621,7 +3721,7 @@ def main() -> int:
             "launches": launches + ppo_summary["chargax_step_launches"]
             + mix_summary["chargax_step_launches"] + sweep["launches"] + fleet_check["launches"]
             + fleet_summary["launches"] + coupled["launches"] + telem["launches"] + sharded["launches"]
-            + bridge["launches"],
+            + bridge["launches"] + bench["launches"],
             "launches_by_path": {
                 "evaluate": launches,
                 "make_train": ppo_summary["chargax_step_launches"],
@@ -3635,6 +3735,7 @@ def main() -> int:
                 "make_train_unsharded_beside_it": sharded["ppo"]["launches"]["plain"],
                 "fleet_sharded_world1_and_unsharded": sharded["fleet"]["launches"],
                 "gym_bridge": bridge["launches"],
+                "paper_bench": bench["launches"],
             },
             "max_abs_err": max(max_err, stacked_err["kernel_max_abs_err"], fleet_check["kernel_max_abs_err"],
                                fleet_summary["kernel"]["max_abs_err"]),
