@@ -11,7 +11,8 @@ Phases, in order (any failure raises and the script exits non-zero):
    mamba2_ssd, rwkv6_wkv) from the checkout (nvcc, sm_90a, one nvcc each, all started
    together) into build/, and prints each build's seconds and ptxas' report
    (each entry function, its registers and its spill bytes); a
-   chargax_step, SSD or WKV instance that spills fails;
+   chargax_step, SSD or WKV instance or an fp32 flash instance that spills
+   fails;
 3. kernel vs plain: the kernel against ``fused_step_ref`` on random slabs,
    B in {1, 300, 16384}, layouts paper_16 / deep_4x4 / kiosk_ac_4 and
    paper_16 padded as a fleet pads it (``pad_evse=40, pad_nodes=36``: 41
@@ -34,8 +35,8 @@ Phases, in order (any failure raises and the script exits non-zero):
    phase 4, device kernels per step and the kernels that take most time;
 8. flash kernel vs plain: ``flash_attention`` against ``mha_blocked`` on the
    same tensors, nine (b, hq, hkv, lq, lk, d) shapes up to the serving one
-   (D = 16, 32, 64, 128, 256; bf16 runs the tensor-core kernel, fp32 the
-   CUDA-core one),
+   (D = 16, 32, 64, 128, 256; both dtypes run on the tensor cores, fp32 as
+   three split bf16 parts),
    causal and not, windows 64 and 300, soft-cap 50, fp32 within 2e-5 (the
    JAX package's kernel tolerance) and bf16 within one bf16 rounding of the
    output (rtol 2**-7, atol 1e-3);
@@ -236,12 +237,14 @@ Phases, in order (any failure raises and the script exits non-zero):
    step's;
 36. flash at the shapes and options the rest of the LM stack launches,
    against ``mha_blocked`` at phase 8's tolerances, each timed beside its
-   bound (live pairs only: the diagonal's triangle, the window's band; fp32
-   at the CUDA-core peak) and SDPA's where one call computes the same
-   function: gemma2-9b's local (window 4096) and global layers at 2 x 8192,
-   D 256, soft-cap 50, bf16; qwen3-moe-30b-a3b's 4 x 4096, GQA 32/4, D 128,
-   bf16; whisper-base's encoder (8 x 1500 frames, non-causal, fp32) and
-   cross-attention (448 queries over 1500 keys, fp32);
+   bound (live pairs only: the diagonal's triangle, the window's band; at
+   the bf16 tensor-core peak in both dtypes, since fp32 runs there too) and
+   SDPA's where one call computes the same function, with the kernel's
+   ratio to it: gemma2-9b's local (window 4096) and global layers at 2 x
+   8192, D 256, soft-cap 50, bf16; qwen3-moe-30b-a3b's 4 x 4096, GQA 32/4,
+   D 128, bf16; whisper-base's encoder (8 x 1500 frames, non-causal, fp32)
+   and cross-attention (448 queries over 1500 keys, fp32); the tensor-core
+   instructions (HGMMA, HMMA) of each fp32 instance's SASS (none fails);
 37. the new models on the card against the CPU: granite-moe-3b-a800m,
    gemma2-9b at full width cut to 2 layers (gemma2: one local/global pair),
    qwen3-moe-30b-a3b to 1 (2 until phase 43 needed the time), whisper-base to 2 encoder and 2 decoder layers,
@@ -553,7 +556,7 @@ BENCH_ROWS = {
     "price_shift": ["fig5_train_2021", "fig5_train_2022", "fig5_train_2023"],
 }
 # (b, hq, hkv, l, d): GQA at 512, D = 128 with a ragged L, tinyllama's
-# training shape; fp32 on the CUDA-core route
+# training shape; fp32 on the split-operand route
 FA_GRAD_SHAPES = [((2, 8, 2, 512, 64), torch.bfloat16), ((1, 4, 4, 300, 128), torch.bfloat16),
                   ((8, 32, 4, 2048, 64), torch.bfloat16), ((2, 4, 2, 256, 64), torch.float32)]
 # a ragged fp32 case and zamba2-1.2b's / rwkv6-3b's training shapes (B 2 x L 2048)
@@ -747,10 +750,23 @@ def profile_episode(env: ChargaxEnv, policy, net, gen, episode_s: float) -> dict
     return summary
 
 
+def ptxas_spills(log: str) -> dict[str, str]:
+    """Each function's spill line in a ptxas ``-v`` report, by mangled name
+    (a spill line before any name, by its line number)."""
+    spills, name = {}, None
+    for i, line in enumerate(log.splitlines()):
+        found = re.search(r"(?:entry function|Function properties for) '?([\w$.]+)", line)
+        if found:
+            name = found.group(1)
+        elif "spill" in line:
+            spills[name or f"line {i}"] = line.strip()
+    return spills
+
+
 def build_all() -> tuple[float, dict[str, Path]]:
     """Phase 2: one nvcc per kernel source, all started together.  Returns the
     seconds it took and each library's path; fails if a chargax_step, SSD or
-    WKV instance spills."""
+    WKV instance or an fp32 flash instance spills."""
     builders = {
         "chargax_step": ops.build_kernel,
         "flash_attention": fa_ops.build_kernel,
@@ -776,21 +792,33 @@ def build_all() -> tuple[float, dict[str, Path]]:
             ):
                 print(f"  nvcc: {line.strip()}")
     print(f"build: all kernels in {total_s:.2f} s")
-    for name in ("chargax_step", "mamba2_ssd", "rwkv6_wkv"):
-        spills = [line for line in results[name][1].splitlines() if "spill" in line]
-        check(
-            all(re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line) for line in spills),
-            f"{name} spills registers: {spills}",
-        )
+    spills = {name: ptxas_spills(results[name][1]) for name in ("chargax_step", "mamba2_ssd", "rwkv6_wkv")}
+    spills["flash_attention fp32"] = {f: line for f, line in ptxas_spills(results["flash_attention"][1]).items()
+                                      if "flash_attention_fp32_kernel" in f}
+    check(len(spills["flash_attention fp32"]) == len(fa_ops.HEAD_DIMS),
+          f"ptxas reports fp32 flash instances {spills['flash_attention fp32']}")
+    for name, lines in spills.items():
+        check(all(re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line) for line in lines.values()),
+              f"{name} spills registers: {lines}")
     return total_s, {name: path for name, (path, _, _) in results.items()}
 
 
-def sass_count(lib: Path, opcode: str) -> int:
-    """Instructions of ``opcode`` in a built library's SASS (``cuobjdump``)."""
+def sass_by_function(lib: Path, opcodes: tuple[str, ...]) -> dict[str, dict[str, int]]:
+    """Instructions of each of ``opcodes`` in each kernel of a built
+    library's SASS (``cuobjdump``), by mangled name."""
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=120).stdout
-    return len(re.findall(rf"\b{opcode}\b", sass))
+    counts = {}
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        name, _, code = body.partition("\n")
+        counts[name.strip()] = {op: len(re.findall(rf"\b{op}\b", code)) for op in opcodes}
+    return counts
+
+
+def sass_count(lib: Path, opcode: str) -> int:
+    """Instructions of ``opcode`` in a built library's SASS."""
+    return sum(c[opcode] for c in sass_by_function(lib, (opcode,)).values())
 
 
 def _randn(shape, gen, dev, dtype) -> torch.Tensor:
@@ -1077,10 +1105,11 @@ def attention_bound(b: int, hq: int, hkv: int, lq: int, lk: int, d: int, dtype: 
     """Least time of one attention call on the card: its work
     (``fa_ops.work``: q, k, v read once and o written once, against QK^T and
     PV over the live pairs, the queries at the end of the kv axis) at the
-    peak of the inputs' type: the bf16 tensor cores, or fp32 outside them.
-    Returns (ms, what bounds it, bytes, operations, live pairs per head)."""
+    peak of the type ``work`` reports: the bf16 tensor cores, where both
+    dtypes run.  Returns (ms, what bounds it, bytes, operations, live pairs
+    per head)."""
     w = fa_ops.work(b, hq, hkv, lq, lk, d, dtype, causal, window)
-    peak = PEAK_BF16_OPS_PER_S if dtype == torch.bfloat16 else PEAK_FP32_OPS_PER_S
+    peak = PEAK_BF16_OPS_PER_S if w.dtype == torch.bfloat16 else PEAK_FP32_OPS_PER_S
     return (*_bound(w.bytes, w.ops, peak), fa_ops.live_pairs(lq, lk, causal, window))
 
 
@@ -2879,12 +2908,26 @@ def attention_fwd_bwd_times(dev: torch.device) -> dict:
 # ---------------------------------------------------------------------------
 # the rest of the LM stack (phases 36-39)
 # ---------------------------------------------------------------------------
+def flash_fp32_sass(fa_lib: Path) -> dict[str, dict[str, int]]:
+    """Phase 36: the tensor-core instructions (HGMMA, HMMA) of each fp32
+    flash instance in ``fa_lib``, by head dim; one without any fails."""
+    counts = {f"D={re.search(r'ILi(\d+)E', name).group(1)}": c
+              for name, c in sass_by_function(fa_lib, ("HGMMA", "HMMA")).items()
+              if "flash_attention_fp32_kernel" in name}
+    print("flash fp32 instances, SASS: " + ", ".join(
+        f"{d} {c['HGMMA']} HGMMA {c['HMMA']} HMMA" for d, c in counts.items()))
+    check(len(counts) == len(fa_ops.HEAD_DIMS) and all(c["HGMMA"] + c["HMMA"] > 0 for c in counts.values()),
+          f"an fp32 flash instance has no tensor-core instruction: {counts}")
+    return counts
+
+
 def flash_slice_shapes(dev: torch.device) -> dict[str, dict]:
     """Phase 36: the flash kernel at the shapes and options the new models
     launch, against ``mha_blocked`` on the same inputs at phase 8's
     tolerances; the median ms of each (inputs rotated over two copies)
     beside its bound and, where one call computes the same function,
-    ``F.scaled_dot_product_attention``'s ms (none with a soft-cap)."""
+    ``F.scaled_dot_product_attention``'s ms and the kernel's ratio to it
+    (none with a soft-cap)."""
     gen = torch.Generator(device=dev).manual_seed(36)
     out = {}
     for name, (b, hq, hkv, lq, lk, d), dtype, opts in FA_SLICE_CASES:
@@ -2914,7 +2957,7 @@ def flash_slice_shapes(dev: torch.device) -> dict[str, dict]:
         print(
             f"flash at {name} (B={b}, Hq={hq}, Hkv={hkv}, Lq={lq}, Lk={lk}, D={d}, {str(dtype)[6:]}, {opts}): "
             f"max abs err {err:.3g} against mha_blocked; {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-            f"{'none (no single call with a soft-cap or window)' if sdpa_ms is None else f'{sdpa_ms:.4f} ms'}; "
+            f"{'none (no single call with a soft-cap or window)' if sdpa_ms is None else f'{sdpa_ms:.4f} ms ({ms / sdpa_ms:.3f} x SDPA)'}; "
             f"bound {bound_ms:.4f} ms by {bound_by} ({n_bytes} bytes, {n_ops:.4g} flop over {pairs} live "
             f"pairs a head), achieved {bound_ms / ms:.4f} of bound"
         )
@@ -3598,6 +3641,7 @@ def main() -> int:
 
     # --- 36. flash at the new models' shapes ---------------------------------------------------
     lap = time.perf_counter()
+    fp32_sass = flash_fp32_sass(libs["flash_attention"])
     slice_flash = flash_slice_shapes(dev)
     phase_s[36] = time.perf_counter() - lap
 
@@ -3758,6 +3802,7 @@ def main() -> int:
             **lm_times["flash_attention"],
             "fwd_bwd": tiny["attention_fwd_bwd"],
             "slice_shapes": slice_flash,
+            "fp32_sass": fp32_sass,
         },
         {
             "name": "mamba2_ssd",

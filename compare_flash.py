@@ -21,7 +21,9 @@ against ``wkv_chunked``; for chargax phase 3's, against ``fused_step_ref``,
 on paper_16 and the padded 41-pole, 36-node layout), reported as the
 largest error over the tolerance (above 1 fails), and its timing at the
 serving shape (flash: zamba2-1.2b's B=4, H=32, L=4096, D=64, bf16, causal,
-in turns with SDPA; ssd: zamba2-1.2b's B=4, L=4096, H=64, P=N=64, bf16;
+then phase 36's whisper-base encoder (8 x 1500 over 1500) and
+cross-attention (8 x 448 over 1500) in fp32, non-causal, H=8, D=64, each in
+turns with SDPA; ssd: zamba2-1.2b's B=4, L=4096, H=64, P=N=64, bf16;
 wkv: rwkv6-3b's B=4, L=4096, H=40, K=V=64, r/k/v bf16, w fp32; chargax:
 B=16384 envs of paper_16, inputs rotated past the L2 and in L2; for ssd,
 wkv and chargax with the blocks one SM holds where the version reports
@@ -176,22 +178,30 @@ def wkv_sweep(dev: torch.device) -> dict[str, float]:
     return worst
 
 
+# the timed flash cases: (label, (b, hq, hkv, lq, lk, d), dtype, options)
+FLASH_TIMED = [
+    ("zamba2 serving", (cs.PREFILL_B, 32, 32, cs.PREFILL_L, cs.PREFILL_L, 64), torch.bfloat16, dict(causal=True)),
+    *(case for case in cs.FA_SLICE_CASES if case[0].startswith("whisper")),
+]
+
+
 def time_flash(dev: torch.device, libs: dict) -> None:
-    b, h, l, d = cs.PREFILL_B, 32, cs.PREFILL_L, 64
     gen = torch.Generator(device=dev).manual_seed(12)
-    bf16 = torch.bfloat16
-    qkv = [tuple(cs._randn((b, h, l, d), gen, dev, bf16) for _ in range(3)) for _ in range(2)]
-    bound_ms, _, _, n_ops, _ = cs.attention_bound(b, h, h, l, l, d, bf16, True, None)
-    with torch.inference_mode():
-        for rnd in range(2):
-            for name, lib in libs.items():
-                fa_ops._library = lambda lib=lib: lib
-                ms = cs.time_ms(functools.partial(fa_ops.flash_attention, causal=True), qkv)
-                print(f"round {rnd} {name}: {ms:.4f} ms, {n_ops / ms / 1e9:.1f} TFLOP/s, "
-                      f"{bound_ms / ms:.4f} of bound")
-            sdpa = functools.partial(F.scaled_dot_product_attention, is_causal=True)
-            ms = cs.time_ms(sdpa, qkv)
-            print(f"round {rnd} SDPA: {ms:.4f} ms, {n_ops / ms / 1e9:.1f} TFLOP/s")
+    for label, (b, hq, hkv, lq, lk, d), dtype, opts in FLASH_TIMED:
+        args = [tuple(cs._randn((b, h, length, d), gen, dev, dtype) for h, length in ((hq, lq), (hkv, lk), (hkv, lk)))
+                for _ in range(2)]
+        bound_ms, _, _, n_ops, _ = cs.attention_bound(b, hq, hkv, lq, lk, d, dtype, opts["causal"], None)
+        sdpa = functools.partial(F.scaled_dot_product_attention, is_causal=opts["causal"])
+        with torch.inference_mode():
+            for rnd in range(2):
+                for name, lib in libs.items():
+                    fa_ops._library = lambda lib=lib: lib
+                    ms = cs.time_ms(functools.partial(fa_ops.flash_attention, **opts), args)
+                    print(f"{label} ({str(dtype)[6:]}) round {rnd} {name}: {ms:.4f} ms, "
+                          f"{n_ops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.4f} of bound")
+                ms = cs.time_ms(sdpa, args)
+                print(f"{label} ({str(dtype)[6:]}) round {rnd} SDPA: {ms:.4f} ms, {n_ops / ms / 1e9:.1f} TFLOP/s")
+        del args
 
 
 def time_ssd(dev: torch.device, libs: dict) -> None:

@@ -1,8 +1,10 @@
 """Build, binding and dispatch of flash attention.
 
-Two routes in ``csrc/flash_attention.cu``, chosen by dtype: bf16 runs on the
-tensor cores (``wgmma`` on TMA-fed K/V tiles, P kept in registers); fp32 runs
-on the CUDA cores, since a tensor-core product of fp32 inputs is TF32.
+Two routes in ``csrc/flash_attention.cu``, chosen by dtype, both on the
+tensor cores (``wgmma`` on TMA-fed K/V tiles, P kept in registers): bf16 as
+it comes; fp32 with every operand split into three bf16 parts and each
+product taken as six part products, which keeps it within the fp32
+tolerance of 2e-5 (a single TF32 or bf16 rounding would not).
 
 The CUDA source is compiled with ``nvcc`` for
 ``sm_90a`` into ``build/flash_attention/`` at first use
@@ -57,12 +59,13 @@ def live_pairs(lq: int, lk: int, causal: bool, window: int | None, q_offset: int
 
 def work(b: int, hq: int, hkv: int, lq: int, lk: int, d: int, dtype: torch.dtype, causal: bool,
          window: int | None, q_offset: int | None = None) -> KernelWork:
-    """One call's work: q, k, v read once and o written once, against QK^T
-    and PV over the live pairs (:func:`live_pairs`), at the inputs' type
-    (bf16 on the tensor cores, fp32 on the CUDA cores)."""
+    """One call's work: q, k, v read once and o written once (``dtype``'s
+    bytes), against QK^T and PV over the live pairs (:func:`live_pairs`) on
+    the tensor cores: both dtypes run there (fp32 as split bf16 parts), so
+    the operations count at the bf16 rate."""
     n_bytes = dtype.itemsize * (2 * b * hq * lq * d + 2 * b * hkv * lk * d)
     n_ops = 4.0 * b * hq * d * live_pairs(lq, lk, causal, window, q_offset)
-    return KernelWork("flash_attention", n_bytes, n_ops, dtype)
+    return KernelWork("flash_attention", n_bytes, n_ops, torch.bfloat16)
 
 
 def build_kernel() -> tuple[Path, str]:
@@ -116,8 +119,8 @@ def _launch(
     check_tensor("q", q, dev, DTYPES, (b, hq, lq, d))
     check_tensor("k", k, dev, q.dtype, (b, hkv, lk, d))
     check_tensor("v", v, dev, q.dtype, (b, hkv, lk, d))
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("bf16 q, k and v must start on 16-byte boundaries (TMA copies)")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must start on 16-byte boundaries (TMA copies, 16-byte loads)")
     if any(t.requires_grad for t in (q, k, v)) and torch.is_grad_enabled():
         raise RuntimeError(
             "the flash_attention kernel has no backward kernel; call flash_attention(), whose "

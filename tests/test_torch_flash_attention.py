@@ -16,6 +16,15 @@ on the tensor cores, so P enters that product in bf16; the CPU tests below
 emulate that rounding in plain PyTorch and show that P split into a bf16
 high part and a bf16 remainder (what the kernel does) stays within that
 tolerance, and that P rounded once to bf16 would not.
+
+The fp32 route runs both products on the same tensor cores, every operand
+(q, K, P, V) split into three bf16 parts and each product taken as six
+part products (``split_mma.split3_product``).  Its emulation, with the
+route's tiles and ``ex2`` on scores with scale * log2(e) folded in, stays
+within a quarter of the fp32 tolerance of 2e-5 (under 0.06 of it at phase
+8's shapes); a single bf16 or TF32 rounding of the operands misses it by
+tens to hundreds of times, and the two-part split that the SSD and WKV
+kernels use (at their 2e-4) spends over half of it.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import ops, ref
+from split_mma import _bf16, split3_product, split_product, tf32, tol_ratio
 
 
 def _jax_ref():
@@ -160,14 +170,13 @@ def test_kernel_wrapper_refuses_grad_and_other_devices():
     assert ops.flash_attention.launches == before
 
 
-def _emulate_bf16_route(q, k, v, *, causal, window, softcap, q_offset, split):
-    """The bf16 kernel's arithmetic in plain PyTorch: kv tiles of 64 rows (32
-    at D = 256), scores in the log2 domain with scale * log2(e) folded, exp2,
-    p = 0 where masked, l summed from the fp32 p, and P entering P V in bf16:
-    as a bf16 high part plus a bf16 remainder (``split``), or rounded once."""
+def _emulate_route(q, k, v, *, causal, window, softcap, q_offset, block_k, qk, pv):
+    """A kernel route's arithmetic in plain PyTorch, in fp32: kv tiles of
+    ``block_k`` rows, S = ``qk(eq, q, K)``, scores in the log2 domain with
+    scale * log2(e) folded, exp2, p = 0 where masked, l summed from the fp32
+    p, and ``pv(eq, P, V)``."""
     b, hq, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
-    block_k = 32 if d == 256 else 64
     scale = d**-0.5
     off = lk - lq if q_offset is None else q_offset
     qf = q.float().reshape(b, hkv, hq // hkv, lq, d)
@@ -177,7 +186,7 @@ def _emulate_bf16_route(q, k, v, *, causal, window, softcap, q_offset, split):
     full_mask = ref.attention_mask(lq, lk, causal=causal, window=window, q_offset=off)
     for start in range(0, lk, block_k):
         kc, vc = k[:, :, start : start + block_k].float(), v[:, :, start : start + block_k].float()
-        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kc)
+        s = qk("bhgqd,bhkd->bhgqk", qf, kc)
         if softcap is None:
             s = s * (scale * math.log2(math.e))
         else:
@@ -188,11 +197,23 @@ def _emulate_bf16_route(q, k, v, *, causal, window, softcap, q_offset, split):
         alpha = torch.exp2(m - m_new)
         p = torch.where(mask, torch.exp2(s - m_new[..., None]), 0.0)
         l = l * alpha + p.sum(dim=-1)
-        hi = p.bfloat16().float()
-        p_mma = hi + (p - hi).bfloat16().float() if split else hi
-        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bhkd->bhgqd", p_mma, vc)
+        acc = acc * alpha[..., None] + pv("bhgqk,bhkd->bhgqd", p, vc)
         m = m_new
-    return (acc / l.clamp_min(1e-30)[..., None]).reshape(b, hq, lq, d).bfloat16()
+    return (acc / l.clamp_min(1e-30)[..., None]).reshape(b, hq, lq, d)
+
+
+def _emulate_bf16_route(q, k, v, *, causal, window, softcap, q_offset, split):
+    """The bf16 kernel's arithmetic: kv tiles of 64 rows (32 at D = 256), S
+    exact in fp32 (bf16 inputs), and P entering P V in bf16: as a bf16 high
+    part plus a bf16 remainder (``split``), or rounded once."""
+
+    def pv(eq, p, v):
+        hi = _bf16(p)
+        return torch.einsum(eq, hi + _bf16(p - hi) if split else hi, v)
+
+    block_k = 32 if q.shape[-1] == 256 else 64
+    return _emulate_route(q, k, v, causal=causal, window=window, softcap=softcap, q_offset=q_offset,
+                          block_k=block_k, qk=torch.einsum, pv=pv).bfloat16()
 
 
 def _bf16_route_error(case, split):
@@ -223,6 +244,72 @@ def test_one_bf16_rounding_of_p_would_exceed_tolerance():
     assert worst > 1.0
 
 
+def _fp32_product(name: str):
+    """A tensor-core product of fp32 operands: the route's three-part split
+    (``split3``), the SSD and WKV kernels' two-part one (``split2``), or one
+    rounding of each operand to bf16 or to TF32."""
+    return {
+        "split3": split3_product,
+        "split2": lambda eq, a, b: split_product(eq, a, b, once=False),
+        "bf16": lambda eq, a, b: split_product(eq, a, b, once=True),
+        "tf32": lambda eq, a, b: torch.einsum(eq, tf32(a), tf32(b)),
+    }[name]
+
+
+def _fp32_route_error(shape, opts, product: str, seed: int = 13) -> float:
+    """Largest |emulated fp32 route - mha_blocked| over the fp32 tolerance on
+    fp32 inputs, both products taken as ``product``; above 1 fails
+    ``TOL[fp32]``.  The route's tiles: 64 kv rows, 32 at D = 128, 16 at 256."""
+    b, hq, hkv, lq, lk, d = shape
+    q, k, v = (torch.from_numpy(t) for t in _rand_qkv(seed, b, hq, hkv, lq, lk, d))
+    kw = dict(causal=opts.get("causal", True), window=opts.get("window"), softcap=opts.get("softcap"),
+              q_offset=opts.get("q_offset"))
+    fn = _fp32_product(product)
+    got = _emulate_route(q, k, v, **kw, block_k={256: 16, 128: 32}.get(d, 64), qk=fn, pv=fn)
+    return tol_ratio(got, ref.mha_blocked(q, k, v, **kw), TOL[torch.float32])
+
+
+# chip_smoke.py phase 8's shapes cut to the CPU (zamba2's prefill to 512
+# rows), each under phase 8's options; phase 36's whisper encoder and cross
+# shapes cut to 2 heads and 150 / 448 query rows; a non-causal cross case,
+# Lq < Lk with a ragged lk, under a window and a soft-cap
+FP32_SHAPES = {
+    "mha": (1, 2, 2, 128, 128, 64), "gqa": (2, 4, 2, 256, 256, 128), "mqa_rect": (1, 8, 1, 128, 384, 128),
+    "unaligned": (1, 2, 2, 130, 200, 64), "decode": (1, 4, 4, 1, 4097, 64), "d16": (1, 2, 1, 64, 64, 16),
+    "d32": (1, 4, 2, 96, 160, 32), "d256": (1, 2, 1, 256, 256, 256), "zamba2_cut": (1, 2, 2, 512, 512, 64),
+}
+FP32_OPTIONS = [dict(causal=True), dict(causal=False), dict(window=64), dict(window=300), dict(softcap=50.0)]
+FP32_CROSS = {
+    "whisper_encoder_cut": ((1, 2, 2, 150, 1500, 64), [dict(causal=False)]),
+    "whisper_cross_cut": ((1, 2, 2, 448, 1500, 64), [dict(causal=False)]),
+    "cross_ragged": ((1, 2, 2, 100, 333, 64), [dict(causal=False, window=64, softcap=30.0, q_offset=0)]),
+}
+
+
+@pytest.mark.parametrize("case", [*FP32_SHAPES, *FP32_CROSS])
+def test_fp32_route_split_emulation_stays_within_tolerance(case):
+    shape, options = FP32_CROSS[case] if case in FP32_CROSS else (FP32_SHAPES[case], FP32_OPTIONS)
+    # a quarter of the tolerance: room for the tensor cores' own order of sums
+    assert max(_fp32_route_error(shape, opts, "split3") for opts in options) <= 0.25
+
+
+def test_one_unsplit_rounding_would_exceed_fp32_tolerance():
+    # why the route splits: one bf16 rounding of each operand keeps 8 bits,
+    # one TF32 rounding 11, and either moves the output past 2e-5 many times over
+    cases = [(FP32_SHAPES[c], dict(causal=True)) for c in ("mha", "gqa", "d256")]
+    for product in ("bf16", "tf32"):
+        assert min(_fp32_route_error(shape, opts, product) for shape, opts in cases) > 10.0, product
+
+
+def test_two_part_split_would_spend_most_of_the_fp32_tolerance():
+    # why three parts: hi + lo keeps about 16 bits, and the dropped terms of
+    # hh + hl + lh reach 2^-16 of a product, so it spends over half the
+    # tolerance where the three-part split spends under a tenth
+    cases = [(FP32_SHAPES[c], dict(causal=True)) for c in ("mha", "gqa", "d256")]
+    assert max(_fp32_route_error(shape, opts, "split2") for shape, opts in cases) > 0.5
+    assert max(_fp32_route_error(shape, opts, "split3") for shape, opts in cases) < 0.1
+
+
 # kernel cases beyond CASES: every other head dim, a decode row over 4097
 # keys at q_offset 4096, and a ragged kv length (the last tile holds 13 keys)
 CUDA_CASES = {
@@ -233,6 +320,11 @@ CUDA_CASES = {
     "decode_lq1": (1, 4, 4, 1, 4097, 64, True, None, None, None),
     "ragged_kv": (2, 4, 2, 100, 333, 64, True, None, None, None),
     "unaligned_d64": (1, 2, 2, 130, 200, 64, True, None, None, None),
+    # whisper's cross-attention (448 queries over 1500 frames, non-causal) at
+    # 2 heads, and D = 256 with ragged q and kv tiles (the fp32 route's
+    # one-warpgroup instance, 16-row kv tiles)
+    "cross_448_1500": (1, 2, 2, 448, 1500, 64, False, None, None, None),
+    "d256_ragged": (1, 2, 1, 77, 333, 256, True, None, None, None),
 }
 
 
@@ -241,7 +333,7 @@ CUDA_CASES = {
 @pytest.mark.parametrize(
     "case",
     ["mha_d64", "gqa_g2", "unaligned_d64", "window300", "softcap50",
-     "d16", "d32", "d256", "decode_lq1", "window64", "ragged_kv"],
+     "d16", "d32", "d256", "decode_lq1", "window64", "ragged_kv", "cross_448_1500", "d256_ragged"],
 )
 def test_cuda_kernel_matches_plain_version(case, dtype):
     if not torch.cuda.is_available():
