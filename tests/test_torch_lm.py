@@ -179,6 +179,9 @@ FULL_PARAMS = {
     "qwen3-moe-30b-a3b": 30_532_122_624,
     "gemma2-9b": 9_241_705_984,
     "whisper-base": 70_627_840,
+    "qwen3-4b": 4_022_468_096,
+    "chatglm3-6b": 6_243_454_976,
+    "chameleon-34b": 34_293_436_416,
 }
 
 
@@ -193,7 +196,8 @@ def test_new_archs_trees_have_jax_names_shapes_and_dtypes(arch, smoke):
         assert sum(p.numel() for p in model.parameters()) == FULL_PARAMS[arch]
 
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-3b", "granite-moe-3b-a800m", "gemma2-9b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-3b", "granite-moe-3b-a800m", "gemma2-9b", "qwen3-moe-30b-a3b",
+                                  "qwen3-4b", "chatglm3-6b", "chameleon-34b"])
 def test_init_draws_leaf_by_leaf_the_whole_trees_weights(arch):
     """``init`` makes, copies and frees one leaf at a time, in the order
     the whole tree is drawn in, so a seed gives the same weights as

@@ -8,9 +8,13 @@ both packages:
 * the dense family (tinyllama, qwen3, chatglm3, chameleon): teacher-forced
   logits and 8 cached decode steps within 2e-4 (as ``test_torch_lm.py``);
 * ``chunked_softmax_xent`` within 1e-5 relative, with and without soft-cap;
+* qwen3, chatglm3 and chameleon: the prefill step's last logits within
+  2e-4 and ``generate``'s greedy tokens equal (a token may differ only
+  where the top two logits tie within 1e-5, as ``test_torch_lm.py``);
 * ``loss`` within rtol 1e-5 and every gradient within 1e-4 of its largest
   magnitude, against ``jax.value_and_grad(model.loss)``, for the tinyllama,
-  zamba2 and rwkv6 smoke configs in fp32;
+  zamba2, rwkv6, qwen3 (qk-norm, tied unembedding), chatglm3 (half RoPE)
+  and chameleon smoke configs in fp32;
 * 3 ``make_train_step`` steps on the same JAX batches, with one and two
   microbatches and with int8 gradient compression: every parameter within
   rtol 2e-3 / atol 2e-5 (``tests/launch/test_trainer.py``'s tolerance for
@@ -41,15 +45,19 @@ import torch
 from repro.configs import registry as jax_registry
 from repro.data.pipeline import DataConfig, SyntheticTokens as JaxTokens
 from repro.distributed import train_step as jax_ts
+from repro.distributed.train_step import make_prefill_step as jax_make_prefill_step
+from repro.launch.serve import generate as jax_generate
 from repro.models.lm import chunked_softmax_xent as jax_xent
 from repro_torch import convert
 from repro_torch.configs import registry
 from repro_torch.distributed import train_step as ts
+from repro_torch.launch import serve
 from repro_torch.models import lm
 from repro_torch.models.lm import CausalLM, chunked_softmax_xent
 
 DENSE = ["tinyllama-1.1b", "qwen3-4b", "chatglm3-6b", "chameleon-34b"]
 TRAIN_ARCHS = ["tinyllama-1.1b", "zamba2-1.2b", "rwkv6-3b"]
+NEW_DENSE = DENSE[1:]  # the dense archs beside tinyllama-1.1b, which no other CPU test serves or trains
 TOL = dict(rtol=2e-4, atol=2e-4)
 PARAM_TOL = dict(rtol=2e-3, atol=2e-5)
 HANDFUL = 8
@@ -106,6 +114,30 @@ def test_dense_logits_and_decode_match_jax(arch):
         np.testing.assert_allclose(cache[k].numpy(), np.asarray(jcache[k]), err_msg=k, **TOL)
 
 
+@pytest.mark.parametrize("arch", NEW_DENSE)
+def test_dense_prefill_and_generate_match_jax(arch):
+    jm, params, tm = _pair(arch)
+    toks = _tokens(3, tm.cfg.vocab, B, 40)
+    want = np.asarray(jax.jit(jax_make_prefill_step(jm))(params, {"tokens": jnp.asarray(toks)}))
+    got = ts.make_prefill_step(tm)({"tokens": torch.from_numpy(toks)})
+    assert got.shape == (B, tm.cfg.vocab) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+    prompt, new = 8, 8
+    prompts = _tokens(4, tm.cfg.vocab, B, prompt)
+    want = np.asarray(jax_generate(jm, params, jnp.asarray(prompts), max_new_tokens=new))
+    got = serve.generate(tm, torch.from_numpy(prompts), max_new_tokens=new).numpy()
+    assert got.shape == want.shape == (B, prompt + new) and got.dtype == np.int32
+    np.testing.assert_array_equal(got[:, :prompt], prompts)
+    for row in range(B):
+        diff = np.flatnonzero(got[row] != want[row])
+        if diff.size:  # a token may differ only where the top two logits tie within 1e-5
+            t = int(diff[0])
+            logits = np.asarray(jm.apply_train(params, jnp.asarray(want[row : row + 1, :t]), remat=False)[0])
+            top2 = np.sort(logits[0, -1])[-2:]
+            assert top2[1] - top2[0] < 1e-5, (row, t, top2)
+
+
 # ---------------------------------------------------------------------------
 # the loss and its gradients
 # ---------------------------------------------------------------------------
@@ -123,7 +155,7 @@ def test_chunked_softmax_xent_matches_jax(softcap):
         np.testing.assert_allclose(g.item(), wnt, rtol=1e-5)
 
 
-@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+@pytest.mark.parametrize("arch", TRAIN_ARCHS + NEW_DENSE)
 def test_loss_and_every_gradient_match_jax(arch):
     jm, params, tm = _pair(arch)
     toks, labels = (_tokens(s, tm.cfg.vocab, B, 48) for s in (5, 6))

@@ -166,6 +166,14 @@ def test_chip_smoke_bounds_read_the_kernels_work_unchanged():
         "qwen3_moe": (0.5560060987017189, "operations", 301989888, 549890031616.0, 8390656),
         "whisper_encoder": (0.03727401415571284, "operations", 98304000, 36864000000.0, 2250000),
         "whisper_cross": (0.019054347462686565, "bytes", 63832064, 11010048000.0, 672000),
+        # the dense models' prefills at 4 x 4096 and qwen3-4b's training step at 8 x 2048, D 128:
+        # 2 * (2 * b * hq + 2 * b * hkv) * l * d bytes, 4 * b * hq * d * l * (l + 1) / 2 flop
+        "qwen3_4b": (0.5560060987017189, "operations", 335544320, 549890031616.0, 8390656),
+        "chatglm3": (0.5560060987017189, "operations", 285212672, 549890031616.0, 8390656),
+        "chameleon": (1.1120121974034378, "operations", 603979776, 1099780063232.0, 8390656),
+        "qwen3_4b_train": (0.27807090462285133, "operations", 335544320, 275012124672.0, 2098176),
+        # tinyllama-1.1b's prefill at 4 x 4096, D 64: zamba2's operations, an eighth of its K/V bytes
+        "tinyllama_serve": (0.27800304935085945, "operations", 150994944, 274945015808.0, 8390656),
     }
     for name, shp, dtype, opts in cs.FA_SLICE_CASES:
         assert cs.attention_bound(*shp, dtype, opts["causal"], opts.get("window")) == want36[name], name
@@ -173,6 +181,35 @@ def test_chip_smoke_bounds_read_the_kernels_work_unchanged():
     assert cs.wkv_bound(4, 4096, 40, 64, 64, 2, 4) == (0.15102930149253732, "bytes", 505948160, 20447887360.0)
     assert cs.chargax_bound(16384, 17, 3) == (0.004049683582089552, "bytes", 13566440, 25903104)
     assert cs.chargax_bound(16383, 17, 5, 3) == (0.0040694185074626864, "bytes", 13632552, 29243655)
+
+
+def test_chip_smoke_serves_the_whole_registry():
+    """The archs ``chip_smoke.py`` serves (phases 11 and 16's ``SCAN_SERVE``,
+    phase 38's ``SLICE_SERVE``) are the JAX registry's, and each
+    ``SLICE_SERVE`` prefill expects one flash launch per attention layer
+    (whisper: its encoder's, its decoder's self- and cross-attention's;
+    its ``generate`` encodes once), so no arch or layer drops out quietly;
+    phase 42's roofline cells are distinct and each was timed by a phase
+    that runs its arch."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.remove(str(ROOT))
+    served = [*cs.SCAN_SERVE, *cs.SLICE_SERVE]
+    assert sorted(served) == sorted(jax_registry.ARCH_IDS)
+    for arch, (b, length, n_prefill, n_generate) in cs.SLICE_SERVE.items():
+        cfg = jax_registry.get_config(arch)
+        if cfg.family == "encdec":
+            assert (n_prefill, n_generate) == (cfg.n_enc_layers + 2 * cfg.n_layers, cfg.n_enc_layers), arch
+        else:
+            assert cfg.family in ("dense", "moe") and (n_prefill, n_generate) == (cfg.n_layers, 0), arch
+    assert cs.SCAN_SERVE[cs.ZAMBA]["mamba2_ssd"] == jax_registry.get_config(cs.ZAMBA).n_layers
+    assert cs.SCAN_SERVE[cs.RWKV]["rwkv6_wkv"] == jax_registry.get_config(cs.RWKV).n_layers
+    cells = [(arch, shape.name) for arch, shape, _ in cs.ROOFLINE_CELLS]
+    assert len(set(cells)) == len(cells)
+    timed = {33: {cs.TINY}, 39: {cs.GRANITE, cs.QWEN4}, 11: {cs.ZAMBA}, 16: {cs.RWKV}, 38: set(cs.SLICE_SERVE)}
+    assert all(arch in timed[phase] for arch, _, phase in cs.ROOFLINE_CELLS)
 
 
 def test_cli_writes_its_own_file_and_refuses_the_jax_ones(tmp_path):
