@@ -324,14 +324,34 @@ Phases, in order (any failure raises and the script exits non-zero):
    and 4 evaluation episodes; every module's rows by the JAX module's
    names with finite values, and its ``chargax_step`` launches exactly as its
    episodes, rollouts and updates give them (the PPO claims need the full
-   budgets and are not asserted here).
+   budgets and are not asserted here);
+44. the rest of the harness at small budgets (``repro_torch.bench``'s
+   ``speed``, ``serve``, ``fleet``, ``fleet_sharded`` and ``roofline``; their
+   full runs go through ``python -m repro_torch.bench.run``): Table 2 /
+   Fig. 1's rows with one round of each comparison, one PPO update at 16
+   and at 1 env and one host-loop rollout over 16 Python envs, the fused
+   rollout launching ``chargax_step`` once a step; the serve step at
+   32768 and 131072 observations; the fleet at 3 and 12 stations; the same
+   fleets sharded in a one-rank NCCL group, closed after it; the
+   ``chargax_step`` chain against ``core/transition``'s stages and the
+   plain version; every module's rows by the JAX module's names with finite
+   values and its launches exactly as its rollouts, episodes and updates
+   give them; the kernel against ``fused_step_ref`` within rtol 1e-4 /
+   atol 2e-4 on the slabs of the 12th launch of each shape each module
+   gives it (the 1024-env rollouts, PPO at 16 and 1 env, the 3- and
+   12-station fleets with 3 pole packs, plain and sharded, the 128-env
+   chain), with the path's own cap, unlimited and binding, and the
+   roofline module's kernel chain against its plain chain on the final
+   state and power sum; ``random_speedup`` and ``ppo16_speedup`` printed beside the
+   paper's 27x-1144x and 134x-2820x with their steps and seconds.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and before that a ``{"kernels": [...]}``
 line with all four kernels (``chargax_step``'s launches summed over the
 episode of phase 4, the training of phases 20 and 23, the sweep of phase 24,
 the fleet phases 25-27, the telemetry phase 28, the sharded phase 40, the
-bridge of phase 41 and the paper's results of phase 43, by path, with the fleet
+bridge of phase 41, the paper's results of phase 43 and the harness of
+phase 44, by path, with the fleet
 route's pack times; each LM kernel's launches summed over its prefill and
 its training steps of phases 33-34 and 38-39, by path; flash also with
 phase 36's shapes).  Needs the repository's
@@ -369,6 +389,9 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.analysis import roofline  # noqa: E402
 from repro_torch.bench import grid, ppo_shopping, price_shift, satisfaction_sweep, v2g  # noqa: E402
+from repro_torch.bench import fleet_sharded, fleet_throughput, roofline_report, speed_table  # noqa: E402
+from repro_torch.bench import serve as serve_bench  # noqa: E402
+from repro_torch.bench.run import process_group  # noqa: E402
 from repro_torch.configs.registry import build_model, get_config  # noqa: E402
 from repro_torch import city, scenarios  # noqa: E402
 from repro_torch.core import ChargaxEnv, EnvConfig, FleetEnv, sampling, transition  # noqa: E402
@@ -618,6 +641,25 @@ BENCH_ROWS = {
     "ppo_shopping": ["fig4a_low"],
     "satisfaction_sweep": ["fig4b_alpha_0", "fig4b_alpha_1", "fig4b_alpha_4"],
     "price_shift": ["fig5_train_2021", "fig5_train_2022", "fig5_train_2023"],
+}
+# phase 44: the rest of the harness at small budgets (the speed module's
+# rollouts at 1024 envs cut to 24 steps, one round of each comparison, one
+# PPO update at 16 and at 1 env, one host-loop rollout), each module's rows
+# by the JAX module's names
+HARNESS_SPEED = dict(speed_table.QUICK, n_steps=24 * 1024, n_py=2_000, wrapper_rounds=1, wrapper_reps=1, rounds=1,
+                     n_ppo16=speed_table.PPO_ENVS * 300, n_ppo1=512,
+                     n_pyppo=speed_table.PPO_ENVS * speed_table.PYPPO_ROLLOUT)
+# the launch of each slab shape whose inputs phase 44 holds against the
+# plain version: late enough in a rollout that cars are plugged in
+CAPTURE_AT = 12
+HARNESS_ROWS = {
+    "speed": ["random_chargax_jax", "random_chargax_wrapped", "random_python_ref", "random_speedup",
+              "random_chargax_fused", "random_chargax_real_data", "ppo16_chargax_jax", "ppo1_chargax_jax",
+              "ppo16_python_ref", "ppo16_speedup"],
+    "serve": [f"serve_{b}" for b in serve_bench.BATCHES_QUICK],
+    "fleet": [f"fleet_{3 * n}_stations" for n in fleet_throughput.SIZES["quick"]],
+    "fleet_sharded": [f"fleet_sharded_{3 * n}_stations" for n in fleet_sharded.SIZES["quick"]],
+    "roofline": ["kernel_staged", "kernel_fused_ref", "kernel_cuda"],
 }
 # (b, hq, hkv, l, d): GQA at 512, D = 128 with a ragged L, tinyllama's
 # training shape; fp32 on the split-operand route
@@ -3270,95 +3312,92 @@ def sharded_world1(dev: torch.device) -> dict:
     with FleetEnv(shard=True) under the group against shard=False, rewards
     within TOL.  The group is destroyed at the end."""
     out: dict = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", rank=0, world_size=1, device_id=dev)
-        try:
-            shard = make_shard_envs(device=dev)
-            env = ChargaxEnv(EnvConfig(fused_step=True), device=dev)
-            cfg = PPOConfig(num_envs=NUM_ENVS, total_timesteps=NUM_ENVS * PPO_SHAPE["rollout_steps"] * SHARD_UPDATES,
-                            **PPO_SHAPE)
-            plain, sharded = make_train(cfg, env, device=dev), make_train(cfg, env, device=dev, shard_envs=shard)
-            r_p = plain.init(torch.Generator(device=dev).manual_seed(40))
-            r_s = sharded.init(torch.Generator(device=dev).manual_seed(40))
-            updates, launches = [], {"plain": 0, "sharded": 0}
-            for u in range(SHARD_UPDATES):
-                before = {k: v.detach().clone() for k, v in r_p.params.named_parameters()}
-                for first in (("plain", "sharded") if u % 2 == 0 else ("sharded", "plain")):
-                    if first == "plain":
-                        r_p, m_p, t_p = _timed_update(plain, r_p)
-                    else:
-                        with _AllReduceTimer() as timer:
-                            r_s, m_s, t_s = _timed_update(sharded, r_s)
-                        n_calls, ar_ms = timer.ms()
-                launches["plain"] += t_p["launches"]["chargax_step"]
-                launches["sharded"] += t_s["launches"]["chargax_step"]
-                for t in (t_p, t_s):
-                    check(t["launches"] == {"chargax_step": cfg.rollout_steps, "flash_attention": 0, "mamba2_ssd": 0,
-                                            "rwkv6_wkv": 0}, f"phase 40 update launches {t['launches']}")
-                sp = dict(r_s.params.named_parameters())
-                param_err, step_err, outside, far = {}, {}, 0, 0.0
-                for name, p in r_p.params.named_parameters():
-                    p, q = p.detach(), sp[name].detach()
-                    param_err[name] = float((q - p).norm() / p.norm().clamp_min(1e-30))
-                    step = p - before[name]
-                    diff = (q - before[name] - step).abs()
-                    step_err[name] = float(diff.norm() / step.norm().clamp_min(1e-30))
-                    outside += int((diff > PPO_UPDATE_TOL["atol"] + PPO_UPDATE_TOL["rtol"] * step.abs()).sum())
-                    far = max(far, float(diff.max()))
-                worst = max(param_err, key=param_err.get)
-                check(param_err[worst] <= SHARD_PARAM_TOL,
-                      f"phase 40 update {u}: {worst} off by {param_err[worst]:.3g} of its norm")
-                worst_step = max(step_err, key=step_err.get)
-                metric_err = max(abs(m_s[k] - m_p[k]) / max(abs(m_p[k]), 1e-30) for k in m_p)
-                updates.append({"plain": {k: v for k, v in t_p.items() if k != "launches"},
-                                "sharded": {k: v for k, v in t_s.items() if k != "launches"},
-                                "all_reduce_calls": n_calls, "all_reduce_ms": ar_ms,
-                                "param_rel_err": param_err[worst], "param_change_rel_err": step_err[worst_step],
-                                "change_elements_outside": outside, "change_max_abs_err": far,
-                                "metric_rel_err": metric_err})
-                print(
-                    f"sharded ppo world 1, update {u} ({'plain' if u % 2 == 0 else 'sharded'} first): sharded "
-                    f"{t_s['update_ms']:.1f} ms (rollout {t_s['rollout_ms']:.1f}, learn {t_s['learn_ms']:.1f}) against "
-                    f"unsharded {t_p['update_ms']:.1f} ms (rollout {t_p['rollout_ms']:.1f}, learn "
-                    f"{t_p['learn_ms']:.1f}); {n_calls} all-reduces {ar_ms:.3f} ms; parameters within "
-                    f"{param_err[worst]:.3g} of their norm ({worst}; limit {SHARD_PARAM_TOL}), this update's change "
-                    f"within {step_err[worst_step]:.3g} ({worst_step}; {outside} elements outside atol 2e-6 + "
-                    f"rtol 1e-3, largest {far:.3g}), metrics within {metric_err:.3g}; "
-                    f"rollout_reward {m_s['rollout_reward']:.3f} / {m_p['rollout_reward']:.3f}"
-                )
-            out["ppo"] = {"updates": updates, "launches": launches}
-            del plain, sharded, r_p, r_s
-            gc.collect()
-            torch.cuda.empty_cache()
+    with process_group(dev):
+        check(dist.get_world_size() == 1, "phase 40 group")
+        shard = make_shard_envs(device=dev)
+        env = ChargaxEnv(EnvConfig(fused_step=True), device=dev)
+        cfg = PPOConfig(num_envs=NUM_ENVS, total_timesteps=NUM_ENVS * PPO_SHAPE["rollout_steps"] * SHARD_UPDATES,
+                        **PPO_SHAPE)
+        plain, sharded = make_train(cfg, env, device=dev), make_train(cfg, env, device=dev, shard_envs=shard)
+        r_p = plain.init(torch.Generator(device=dev).manual_seed(40))
+        r_s = sharded.init(torch.Generator(device=dev).manual_seed(40))
+        updates, launches = [], {"plain": 0, "sharded": 0}
+        for u in range(SHARD_UPDATES):
+            before = {k: v.detach().clone() for k, v in r_p.params.named_parameters()}
+            for first in (("plain", "sharded") if u % 2 == 0 else ("sharded", "plain")):
+                if first == "plain":
+                    r_p, m_p, t_p = _timed_update(plain, r_p)
+                else:
+                    with _AllReduceTimer() as timer:
+                        r_s, m_s, t_s = _timed_update(sharded, r_s)
+                    n_calls, ar_ms = timer.ms()
+            launches["plain"] += t_p["launches"]["chargax_step"]
+            launches["sharded"] += t_s["launches"]["chargax_step"]
+            for t in (t_p, t_s):
+                check(t["launches"] == {"chargax_step": cfg.rollout_steps, "flash_attention": 0, "mamba2_ssd": 0,
+                                        "rwkv6_wkv": 0}, f"phase 40 update launches {t['launches']}")
+            sp = dict(r_s.params.named_parameters())
+            param_err, step_err, outside, far = {}, {}, 0, 0.0
+            for name, p in r_p.params.named_parameters():
+                p, q = p.detach(), sp[name].detach()
+                param_err[name] = float((q - p).norm() / p.norm().clamp_min(1e-30))
+                step = p - before[name]
+                diff = (q - before[name] - step).abs()
+                step_err[name] = float(diff.norm() / step.norm().clamp_min(1e-30))
+                outside += int((diff > PPO_UPDATE_TOL["atol"] + PPO_UPDATE_TOL["rtol"] * step.abs()).sum())
+                far = max(far, float(diff.max()))
+            worst = max(param_err, key=param_err.get)
+            check(param_err[worst] <= SHARD_PARAM_TOL,
+                  f"phase 40 update {u}: {worst} off by {param_err[worst]:.3g} of its norm")
+            worst_step = max(step_err, key=step_err.get)
+            metric_err = max(abs(m_s[k] - m_p[k]) / max(abs(m_p[k]), 1e-30) for k in m_p)
+            updates.append({"plain": {k: v for k, v in t_p.items() if k != "launches"},
+                            "sharded": {k: v for k, v in t_s.items() if k != "launches"},
+                            "all_reduce_calls": n_calls, "all_reduce_ms": ar_ms,
+                            "param_rel_err": param_err[worst], "param_change_rel_err": step_err[worst_step],
+                            "change_elements_outside": outside, "change_max_abs_err": far,
+                            "metric_rel_err": metric_err})
+            print(
+                f"sharded ppo world 1, update {u} ({'plain' if u % 2 == 0 else 'sharded'} first): sharded "
+                f"{t_s['update_ms']:.1f} ms (rollout {t_s['rollout_ms']:.1f}, learn {t_s['learn_ms']:.1f}) against "
+                f"unsharded {t_p['update_ms']:.1f} ms (rollout {t_p['rollout_ms']:.1f}, learn "
+                f"{t_p['learn_ms']:.1f}); {n_calls} all-reduces {ar_ms:.3f} ms; parameters within "
+                f"{param_err[worst]:.3g} of their norm ({worst}; limit {SHARD_PARAM_TOL}), this update's change "
+                f"within {step_err[worst_step]:.3g} ({worst_step}; {outside} elements outside atol 2e-6 + "
+                f"rtol 1e-3, largest {far:.3g}), metrics within {metric_err:.3g}; "
+                f"rollout_reward {m_s['rollout_reward']:.3f} / {m_p['rollout_reward']:.3f}"
+            )
+        out["ppo"] = {"updates": updates, "launches": launches}
+        del plain, sharded, r_p, r_s
+        gc.collect()
+        torch.cuda.empty_cache()
 
-            rewards = {}
-            reset_launch_counts()
-            for flag in (True, False):
-                fleet = FleetEnv(FLEET_ARCHS, EnvConfig(fused_step=True), scenarios=FLEET_SCENARIOS,
-                                 replicas=FLEET_REPLICAS, shard=flag, device=dev)
-                check((fleet.env_shard is not None) == flag and fleet.num_envs == FLEET_REPLICAS * len(FLEET_ARCHS),
-                      f"phase 40 fleet shard={flag}: {fleet.env_shard}, {fleet.num_envs} envs")
-                gen = torch.Generator(device=dev).manual_seed(40)
-                params = fleet.default_params
-                _, state = fleet.reset(gen, params)
-                got = []
-                for _ in range(fleet.config.episode_steps):
-                    action = fleet.sample_action(gen)
-                    _, state, reward, _, _ = fleet.step(gen, state, action, params)
-                    got.append(reward)
-                rewards[flag] = torch.stack(got)
-            fleet_launches = launch_counts()["chargax_step"]
-            steps = EnvConfig().episode_steps
-            check(fleet_launches == 2 * steps, f"phase 40 fleet launches {fleet_launches}, expected {2 * steps}")
-            err = float((rewards[True] - rewards[False]).abs().max())
-            check(torch.allclose(rewards[True], rewards[False], **TOL),
-                  f"phase 40 sharded fleet rewards off the unsharded ones by {err}")
-            print(f"sharded fleet world 1: {FLEET_REPLICAS} fleets x {len(FLEET_ARCHS)} stations, one episode, "
-                  f"rewards within {err:.3g} of shard=False's (limit rtol 1e-4 / atol 2e-4), "
-                  f"{fleet_launches} chargax_step launches")
-            out["fleet"] = {"reward_max_abs_err": err, "launches": fleet_launches}
-        finally:
-            dist.destroy_process_group()
+        rewards = {}
+        reset_launch_counts()
+        for flag in (True, False):
+            fleet = FleetEnv(FLEET_ARCHS, EnvConfig(fused_step=True), scenarios=FLEET_SCENARIOS,
+                             replicas=FLEET_REPLICAS, shard=flag, device=dev)
+            check((fleet.env_shard is not None) == flag and fleet.num_envs == FLEET_REPLICAS * len(FLEET_ARCHS),
+                  f"phase 40 fleet shard={flag}: {fleet.env_shard}, {fleet.num_envs} envs")
+            gen = torch.Generator(device=dev).manual_seed(40)
+            params = fleet.default_params
+            _, state = fleet.reset(gen, params)
+            got = []
+            for _ in range(fleet.config.episode_steps):
+                action = fleet.sample_action(gen)
+                _, state, reward, _, _ = fleet.step(gen, state, action, params)
+                got.append(reward)
+            rewards[flag] = torch.stack(got)
+        fleet_launches = launch_counts()["chargax_step"]
+        steps = EnvConfig().episode_steps
+        check(fleet_launches == 2 * steps, f"phase 40 fleet launches {fleet_launches}, expected {2 * steps}")
+        err = float((rewards[True] - rewards[False]).abs().max())
+        check(torch.allclose(rewards[True], rewards[False], **TOL),
+              f"phase 40 sharded fleet rewards off the unsharded ones by {err}")
+        print(f"sharded fleet world 1: {FLEET_REPLICAS} fleets x {len(FLEET_ARCHS)} stations, one episode, "
+              f"rewards within {err:.3g} of shard=False's (limit rtol 1e-4 / atol 2e-4), "
+              f"{fleet_launches} chargax_step launches")
+        out["fleet"] = {"reward_max_abs_err": err, "launches": fleet_launches}
     out["launches"] = out["ppo"]["launches"]["plain"] + out["ppo"]["launches"]["sharded"] + out["fleet"]["launches"]
     return out
 
@@ -3487,6 +3526,158 @@ def paper_bench(dev: torch.device, card: str) -> dict:
     print(f"paper_bench v2g baselines on {v2g.TOU_SCENARIO}, {v2g.N_EVAL} episodes [{card}]: max_charge daily profit "
           f"{s['profit_max_charge_baseline']}, v2g_arbitrage {s['profit_v2g_arbitrage']} "
           f"(discharged {s['discharged_kwh_arbitrage']} kWh); ppo after {BENCH_UPDATES} update {s['profit_ppo']}")
+    out["launches"] = sum(out["launches_by_module"].values())
+    return out
+
+
+def harness_launches() -> dict[str, int]:
+    """``chargax_step`` launches of each phase 44 module: a fused rollout
+    launches once a batched step, a fleet episode once a step, a PPO update
+    once a rollout step; the staged rollouts, the plain chain, the Python
+    envs and serving launch nothing."""
+    b = HARNESS_SPEED
+    rollout = b["n_steps"] // b["n_envs"]
+    wrapper = (2 + 2 * b["wrapper_rounds"] * b["wrapper_reps"]) * rollout  # warm-ups + the grid, both paths
+    fused = (1 + b["rounds"]) * rollout  # the fused side's warm-up + rounds
+    real = (2 + 2 * b["rounds"]) * rollout + 2  # each table's warm-up + rounds, one signature-check step each
+    ppo = sum(cfg.rollout_steps * (1 + cfg.num_updates)  # the warm-up update + the run
+              for cfg in (speed_table.ppo_config(b["n_ppo16"], speed_table.PPO_ENVS),
+                          speed_table.ppo_config(b["n_ppo1"], 1)))
+    episode = EnvConfig().episode_steps
+    n_iters = roofline_report.SIZES["quick"][1]
+    return {
+        "speed": wrapper + fused + real + ppo,
+        "serve": 0,
+        "fleet": 2 * episode * len(fleet_throughput.SIZES["quick"]),  # warm-up + timed episode a size
+        "fleet_sharded": 2 * episode * len(fleet_sharded.SIZES["quick"]),
+        "roofline": (1 + roofline_report.ROUNDS) * n_iters,  # the kernel chain's warm-up + rounds
+    }
+
+
+@contextlib.contextmanager
+def capture_slabs(kept: dict):
+    """Keeps a copy of the inputs of the ``CAPTURE_AT``-th ``chargax_step``
+    launch of each (B, P, packs) shape, or of its last where there are fewer,
+    in ``kept``; the launches themselves run and count as before."""
+    launch, seen = ops._launch, {}
+
+    def keep(slabs, pp, dt, cap):
+        key = (*slabs.target.shape, pp.packs.member.shape[0] if isinstance(pp, PolePacks) else 1)
+        seen[key] = seen.get(key, 0) + 1
+        if seen[key] <= CAPTURE_AT:
+            kept[key] = (PoleSlabs(*(x.clone() for x in slabs)), pp, dt, cap.clone())
+        return launch(slabs, pp, dt, cap)
+
+    ops._launch = keep
+    try:
+        yield
+    finally:
+        ops._launch = launch
+
+
+def captured_vs_plain(kept: dict, label: str) -> float:
+    """Phase 44: the kernel against ``fused_step_ref`` on each captured
+    launch's slabs, with the path's own cap, unlimited and binding at half of
+    each env's request; at least one env of the module bound."""
+    max_err, bound = 0.0, 0
+    for (b, p, k), (slabs, pp, dt, path_cap) in kept.items():
+        free = fused_step_ref(slabs, pp, dt)
+        binding = 0.5 * free.p_req.clamp_min(1.0)
+        bound += int((free.p_req > binding).sum())
+        for cap_name, cap in (("path", path_cap), ("unlimited", None), ("binding", binding)):
+            got, want = ops.chargax_step(slabs, pp, dt, cap), fused_step_ref(slabs, pp, dt, cap)
+            torch.cuda.synchronize()
+            for name, g, w in zip(got._fields, got, want):
+                err = float((g - w).abs().max())
+                check(bool(torch.isfinite(g).all()) and torch.allclose(g, w, **TOL),
+                      f"phase 44 {label} B={b} P={p} K={k} cap={cap_name} {name}: max abs err {err}")
+                max_err = max(max_err, err)
+    check(bound > 0, f"phase 44 {label}: the binding cap never binds")
+    print(f"bench_harness {label}: kernel vs plain on captured slabs of shapes (B, P, packs) {sorted(kept)}, "
+          f"caps the path's / unlimited / binding in {bound} envs: max abs err {max_err:.3g} (limit rtol 1e-4 / "
+          f"atol 2e-4)")
+    return max_err
+
+
+def chain_vs_plain() -> dict[str, float]:
+    """Phase 44: the roofline module's kernel chain against its plain
+    chain from the same state and targets, the final state's every field and
+    the power sum within TOL (integer fields equal)."""
+    finals = roofline_report.LAST_FINALS
+    (s_k, p_k), (s_r, p_r) = finals["cuda"], finals["fused_ref"]
+    errs = {"power_sum": float((p_k - p_r).abs())}
+    check(torch.allclose(p_k, p_r, **TOL), f"phase 44 chain power sum {float(p_k)} against {float(p_r)}")
+    for f in dataclasses.fields(s_k):
+        g, w = getattr(s_k, f.name), getattr(s_r, f.name)
+        if g.is_floating_point():
+            errs[f.name] = float((g - w).abs().max())
+            check(bool(torch.isfinite(g).all()) and torch.allclose(g, w, **TOL),
+                  f"phase 44 chain final {f.name}: max abs err {errs[f.name]}")
+        else:
+            check(torch.equal(g, w), f"phase 44 chain final {f.name} differs")
+    n_envs, n_iters = roofline_report.SIZES["quick"]
+    worst = max(errs, key=errs.get)
+    print(f"bench_harness roofline: the kernel's chain of {n_iters} transitions x {n_envs} envs against the plain "
+          f"chain: final state and power sum within {errs[worst]:.3g} ({worst}; limit rtol 1e-4 / atol 2e-4)")
+    return errs
+
+
+def bench_harness(dev: torch.device, card: str) -> dict:
+    """Phase 44: the rest of the harness once each at small budgets (speed,
+    serve, fleet, fleet_sharded in a one-rank NCCL group, roofline), every
+    row by the JAX module's name and finite, each module's ``chargax_step``
+    launches exactly as its rollouts, episodes and updates give them, the
+    kernel held against the plain version on slabs captured from each
+    module's launches and on the roofline module's whole chain; the paper's
+    two speedups beside their ranges."""
+    expect = harness_launches()
+
+    def sharded() -> list:
+        with process_group(dev):
+            check(dist.get_world_size() == 1, "phase 44 group")
+            return fleet_sharded.run(quick=True, device=dev)
+
+    runs = {
+        "speed": (speed_table, lambda: speed_table.run(quick=True, budget=HARNESS_SPEED, device=dev)),
+        "serve": (serve_bench, lambda: serve_bench.run(quick=True, device=dev)),
+        "fleet": (fleet_throughput, lambda: fleet_throughput.run(quick=True, device=dev)),
+        "fleet_sharded": (fleet_sharded, sharded),
+        "roofline": (roofline_report, lambda: roofline_report.run(quick=True, device=dev)),
+    }
+    out = {"launches_by_module": {}, "seconds": {}, "summaries": {}, "max_abs_err": {}}
+    for name, (mod, fn) in runs.items():
+        kept: dict = {}
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with capture_slabs(kept):
+            rows = fn()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        check([r[0] for r in rows] == HARNESS_ROWS[name], f"phase 44 {name} rows {[r[0] for r in rows]}")
+        check(all(math.isfinite(r[1]) for r in rows), f"phase 44 {name} non-finite rows {rows}")
+        check(counts == {**dict.fromkeys(counts, 0), "chargax_step": expect[name]},
+              f"phase 44 {name} launches {counts}, expected {expect[name]} chargax_step")
+        out["launches_by_module"][name], out["seconds"][name] = expect[name], seconds
+        out["summaries"][name] = mod.LAST_SUMMARY
+        print(f"bench_harness {name} [{card}]: {len(rows)} rows in {seconds:.1f} s, "
+              f"{expect[name]} chargax_step launches")
+        for rname, val, derived in rows:
+            print(f"  {rname},{val:.3f},{derived}")
+        if expect[name]:
+            out["max_abs_err"][name] = captured_vs_plain(kept, name)
+    out["chain_abs_err"] = chain_vs_plain()  # accumulated over the chain: kept out of the per-element max
+    check(not dist.is_initialized(), "phase 44 left a process group open")
+    s = out["summaries"]["speed"]
+    check(s["fused_impl"] == "cuda" and s["fused_launches_per_step"] == 1.0,
+          f"phase 44 fused rollout: impl {s['fused_impl']}, {s['fused_launches_per_step']} launches a step")
+    check(out["summaries"]["roofline"]["kernel_cuda_us_per_env_step"] is not None, "phase 44 kernel_cuda row")
+    n, t = s["env_steps_run"], s["seconds"]
+    for key, (num, den) in {"random_speedup": ("python_random", "random"),
+                            "ppo16_speedup": ("ppo16_python", "ppo16")}.items():
+        lo, hi = speed_table.PAPER_RANGE[key]
+        print(f"bench_harness {key} [{card}]: {s[key]:.3f}x (paper: {lo}x-{hi}x; inside: {lo <= s[key] <= hi}) "
+              f"= ({t[num]:.6f} s / {n[num]} steps of the python side) over ({t[den]:.6f} s / {n[den]} env-steps "
+              f"of the port); small budget, the full quick run is python -m repro_torch.bench.run --only speed")
     out["launches"] = sum(out["launches_by_module"].values())
     return out
 
@@ -3859,6 +4050,12 @@ def main() -> int:
     phase_s[43] = time.perf_counter() - lap
     print(f"paper's results phase, host s: 43={phase_s[43]:.1f}")
 
+    # --- 44. the rest of the harness at small budgets --------------------------------------------
+    lap = time.perf_counter()
+    harness = bench_harness(dev, card)
+    phase_s[44] = time.perf_counter() - lap
+    print(f"the rest of the harness, host s: 44={phase_s[44]:.1f}")
+
     metrics = {
         "env_steps_per_s": env_steps_per_s,
         "episode_s": episode_s,
@@ -3886,6 +4083,7 @@ def main() -> int:
         "gym_bridge": bridge,
         "roofline": roof,
         "paper_bench": {k: v for k, v in bench.items() if k != "rows"},
+        "bench_harness": harness,
         "phases_s": phase_s,
     }
     print(json.dumps({"metrics": metrics}))
@@ -3913,7 +4111,7 @@ def main() -> int:
             "launches": launches + ppo_summary["chargax_step_launches"]
             + mix_summary["chargax_step_launches"] + sweep["launches"] + fleet_check["launches"]
             + fleet_summary["launches"] + coupled["launches"] + telem["launches"] + sharded["launches"]
-            + bridge["launches"] + bench["launches"],
+            + bridge["launches"] + bench["launches"] + harness["launches"],
             "launches_by_path": {
                 "evaluate": launches,
                 "make_train": ppo_summary["chargax_step_launches"],
@@ -3928,9 +4126,10 @@ def main() -> int:
                 "fleet_sharded_world1_and_unsharded": sharded["fleet"]["launches"],
                 "gym_bridge": bridge["launches"],
                 "paper_bench": bench["launches"],
+                "bench_harness": harness["launches"],
             },
             "max_abs_err": max(max_err, stacked_err["kernel_max_abs_err"], fleet_check["kernel_max_abs_err"],
-                               fleet_summary["kernel"]["max_abs_err"]),
+                               fleet_summary["kernel"]["max_abs_err"], *harness["max_abs_err"].values()),
             "ms": kernel_ms,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,

@@ -34,10 +34,17 @@ def device_line(device: torch.device) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def timed(fn: Callable[[], _T], device: torch.device) -> tuple[_T, float]:
-    """``(fn(), seconds)``: CUDA events around the call on the card, ending
-    in a synchronize; the host clock on the CPU."""
+def sync(device: torch.device) -> None:
+    """Wait for the work queued on the card (nothing to wait for on the CPU)."""
     if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def timed(fn: Callable[[], _T], device: torch.device) -> tuple[_T, float]:
+    """``(fn(), seconds)``: CUDA events around the call on the card, after
+    the queued work and ending in a synchronize; the host clock on the CPU."""
+    if device.type == "cuda":
+        sync(device)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         out = fn()

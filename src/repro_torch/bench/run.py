@@ -1,7 +1,8 @@
-"""The harness's CLI: run the paper's figures and claims on the card, the
-selection and persistence of the JAX package's ``benchmarks/run.py``.
+"""The harness's CLI: run the paper's tables, figures and claims on the
+card, the selection and persistence of the JAX package's ``benchmarks/run.py``.
 
-    python -m repro_torch.bench.run --only grid,v2g,ppo,satisfaction,shift [--full] [--device cpu]
+    python -m repro_torch.bench.run [--full] [--only speed,fleet,...] [--device cpu]
+    python -m repro_torch.bench.run --list                  # every module, in the JAX registry's order
     python -m repro_torch.bench.run --only ppo:low          # one Fig. 4a traffic level
     python -m repro_torch.bench.run --merge ppo             # Fig. 4a's claims over the levels run
 
@@ -12,16 +13,24 @@ booleans).  Every module's result is persisted through
 ``results/`` by default; never the repo root, which holds the JAX package's
 files); ``ppo:<level>`` writes ``BENCH_ppo_<level>.json``, which ``--merge
 ppo`` reads back.  Runs on the card unless ``--device cpu`` is given.
+``fleet_sharded`` runs in the open ``torch.distributed`` group, or in a
+group of this one process opened for it (NCCL on the card, gloo on the CPU)
+and closed after it.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib
 import json
 import os
 import sys
+import tempfile
 import time
 import traceback
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.bench.common import device_line
 from repro_torch.obs import write_benchmark_json
@@ -29,12 +38,19 @@ from repro_torch.obs.sinks import REPO_ROOT, to_jsonable
 from repro_torch.utils import resolve_device
 
 MODULES = {
-    "grid": ("repro_torch.bench.grid", "Grid: feeder-envelope allocate cost + grid_aware vs max-charge violations"),
-    "v2g": ("repro_torch.bench.v2g", "V2G: allow_v2g throughput + mixed-scenario PPO profit vs baselines"),
+    "speed": ("repro_torch.bench.speed_table", "Table 2 / Fig 1: env + PPO throughput"),
     "ppo": ("repro_torch.bench.ppo_shopping", "Fig 4a: PPO vs max-charge baseline"),
     "satisfaction": ("repro_torch.bench.satisfaction_sweep", "Fig 4b/c: alpha sweep"),
     "shift": ("repro_torch.bench.price_shift", "Fig 5: price-year distribution shift"),
+    "fleet": ("repro_torch.bench.fleet_throughput", "Fleet: heterogeneous stations, one batch"),
+    "fleet_sharded": ("repro_torch.bench.fleet_sharded", "Fleet: whole fleets sharded over the process group"),
+    "v2g": ("repro_torch.bench.v2g", "V2G: allow_v2g throughput + mixed-scenario PPO profit vs baselines"),
+    "grid": ("repro_torch.bench.grid", "Grid: feeder-envelope allocate cost + grid_aware vs max-charge violations"),
+    "serve": ("repro_torch.bench.serve", "Serve: batched-policy inference step, obs/sec + p50/p99 latency"),
+    "roofline": ("repro_torch.bench.roofline_report", "roofline table + chargax_step kernel vs reference"),
 }
+# the modules that run in a torch.distributed group
+GROUP_MODULES = {"fleet_sharded"}
 DEFAULT_OUT = os.path.join(REPO_ROOT, "results")
 
 
@@ -72,6 +88,23 @@ def merge_ppo(out: str) -> tuple[list, dict]:
     return rows, {"device": devices, "traffic": profits, **ppo_shopping.claims(profits)}
 
 
+@contextlib.contextmanager
+def process_group(device: torch.device):
+    """The open ``torch.distributed`` group, or a group of this one process
+    (NCCL on the card, gloo on the CPU) opened here and closed on exit."""
+    if dist.is_initialized():
+        yield
+        return
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = {"device_id": device} if device.type == "cuda" else {}
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo", init_method=f"file://{tmp}/pg",
+                                rank=0, world_size=1, **kw)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
 def report(name: str, rows, summary: dict, card: str, quick: bool, out: str | None) -> None:
     for rname, val, derived in rows:
         print(f"{rname},{val:.3f},{derived} [{card}]", flush=True)
@@ -90,7 +123,13 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=DEFAULT_OUT, help="directory of the BENCH_<name>.json files")
     ap.add_argument("--no-persist", action="store_true", help="skip writing BENCH_<name>.json")
     ap.add_argument("--merge", choices=["ppo"], help="merge the BENCH_ppo_<level>.json files under --out")
+    ap.add_argument("--list", action="store_true", help="print every registered benchmark (name: description) and exit")
     args = ap.parse_args(argv)
+
+    if args.list:
+        for name, (_, desc) in MODULES.items():
+            print(f"{name}: {desc}")
+        return 0
 
     out = None if args.no_persist else args.out
     if args.merge:
@@ -111,7 +150,8 @@ def main(argv=None) -> int:
         try:
             mod = importlib.import_module(mod_name)
             kw = {"traffic": (level,)} if level else {}
-            rows = mod.run(quick=not args.full, device=device, **kw)
+            with process_group(device) if name in GROUP_MODULES else contextlib.nullcontext():
+                rows = mod.run(quick=not args.full, device=device, **kw)
             report(f"{name}_{level}" if level else name, rows, mod.LAST_SUMMARY, card, not args.full, out)
         except Exception as e:  # noqa: BLE001 -- one module's failure is reported; the others still run
             failures += 1

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from collections.abc import Callable
 from pathlib import Path
 
 import torch
@@ -64,6 +65,8 @@ from repro_torch.kernels.chargax_step.ref import (
 )
 
 Tensor = torch.Tensor
+# a function on the slabs: ``(slabs, packs, dt_hours, cap_kw) -> FusedOut``
+SlabStep = Callable[[PoleSlabs, PoleParams | PolePacks, float, Tensor | None], FusedOut]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "chargax_step.cu"
 # what a block's shared memory holds with its 32 envs (200,192 bytes at
@@ -329,15 +332,18 @@ def fused_step(
     dt_hours: float,
     *,
     cap_kw: Tensor | None = None,  # (B,) feeder cap [kW]; None = unlimited
+    step: SlabStep | None = None,
 ) -> FusedOut:
     """Stages request -> allocate -> deliver for a batch of env states.
 
     Returns pole-indexed FusedOut; callers slice ``[:, :N]`` for EVSEs and
-    ``[:, N]`` for the battery.
+    ``[:, N]`` for the battery.  ``step`` is the function on the slabs,
+    :func:`chargax_step` by default; ``fused_step_ref`` runs the plain
+    version.
     """
     pp = build_pole_params(params)
     slabs = build_slabs(params, state, target_evse, target_batt)
-    return chargax_step(slabs, pp, dt_hours, cap_kw)
+    return (step or chargax_step)(slabs, pp, dt_hours, cap_kw)
 
 
 def fused_transition(
@@ -348,14 +354,16 @@ def fused_transition(
     dt_hours: float,
     *,
     cap_kw: Tensor | None = None,
+    step: SlabStep | None = None,
 ) -> tuple[AllocationResult, ChargeResult]:
     """request + allocate + deliver through the fused step (the hot path).
 
     Takes the place of the staged ``apply_actions`` -> ``allocate`` ->
     ``charge_cars`` sequence and agrees with it within fp32 reordering.
+    ``step`` as for :func:`fused_step`.
     """
     cap = grid_cap_kw(params, state) if cap_kw is None else cap_kw
-    out = fused_step(params, state, target_evse, target_batt, dt_hours, cap_kw=cap)
+    out = fused_step(params, state, target_evse, target_batt, dt_hours, cap_kw=cap, step=step)
     n = params.evse_voltage.shape[-1]
     applied = AppliedActions(out.current[:, :n], out.current[:, n], out.excess)
     alloc = AllocationResult(

@@ -138,7 +138,7 @@ def test_runner_reports_each_example(capsys):
 def test_bench_and_examples_import_nothing_of_jax():
     root = Path(repro_torch.__file__).parent
     files = sorted([*(root / "bench").glob("*.py"), *(root / "examples").glob("*.py")])
-    assert len(files) == 17
+    assert len(files) == 23
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):

@@ -344,7 +344,7 @@ def test_cli_needs_a_card_unless_told_cpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run.main(["--only", "grid", "--out", str(tmp_path)])
     with pytest.raises(SystemExit):
-        run.main(["--only", "speed", "--device", "cpu", "--out", str(tmp_path)])
+        run.main(["--only", "dryrun", "--device", "cpu", "--out", str(tmp_path)])
     with pytest.raises(SystemExit):
         run.main(["--only", "grid:low", "--device", "cpu", "--out", str(tmp_path)])
     assert list(tmp_path.iterdir()) == []
