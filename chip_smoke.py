@@ -2286,8 +2286,8 @@ def coupled_fleets(dev: torch.device) -> dict:
 # phase 28: the phases one PPO rollout step crosses on the fused route, and
 # the keys of rl_train's train record (the JAX launcher's, rl_train.py:272-284)
 ROLLOUT_PHASES = (
-    "wrap/LogWrapper", "wrap/AutoReset", "env/decode", "env/fused_transition",
-    "env/depart_arrive", "env/reward", "env/observe",
+    "policy/act", "wrap/LogWrapper", "wrap/AutoReset", "env/decode", "env/fused_transition",
+    "env/depart_arrive", "env/sample", "env/reward", "env/advance", "env/info", "env/observe",
 )
 TRACE_PHASES = ROLLOUT_PHASES + ("ppo/rollout", "ppo/gae", "ppo/update", "profile/run_one_update")
 TRAIN_KEYS = ("wall_s", "env_steps_per_sec", "rollout_reward_first", "rollout_reward_last",
@@ -2404,7 +2404,7 @@ def telemetry(env: ChargaxEnv) -> dict:
               f"{row['device_us_per_call']:10.2f} {row['kernels_per_call']:8.2f}")
     uncovered = per_phase["ppo/rollout"]
     uncovered_share = uncovered["us"] / rollout_us if rollout_us else None
-    print(f"  outside env/* and wrap/* (the policy, the rollout buffers): "
+    print(f"  outside policy/act, env/* and wrap/* (the rollout buffers): "
           f"{uncovered['us'] / PROBE_STEPS:.2f} us and {uncovered['kernels'] / PROBE_STEPS:.2f} "
           f"kernels a step, share of the rollout's device time {uncovered_share}")
 
@@ -2473,19 +2473,20 @@ def annotation_cost(env: ChargaxEnv, policy, net, gen) -> dict:
             obs.enable_trace_annotations(prev)
 
     per_with = {"disabled": with_us(False), "enabled": with_us(True)}
-    # annotated phases a step: 5 in an env step (evaluate), 7 under PPO's wrappers
+    # annotated phases a step: 8 in an env step and policy/act (evaluate),
+    # and the two wrappers under PPO
     out = {
         "episode_env_steps_per_s": runs,
         "with_us": per_with,
-        "eval_step_us": {k: 5 * v for k, v in per_with.items()},
-        "ppo_rollout_step_us": {k: 7 * v for k, v in per_with.items()},
+        "eval_step_us": {k: 9 * v for k, v in per_with.items()},
+        "ppo_rollout_step_us": {k: 11 * v for k, v in per_with.items()},
     }
     print(
         "annotations: episode env-steps/s disabled "
         + ", ".join(f"{v:.0f}" for v in runs["disabled"])
         + "; enabled " + ", ".join(f"{v:.0f}" for v in runs["enabled"])
         + f"; one with: disabled {per_with['disabled']:.4f} us, enabled {per_with['enabled']:.4f} us; "
-        f"a PPO rollout step (7 phases): {out['ppo_rollout_step_us']['disabled']:.3f} / "
+        f"a PPO rollout step (11 phases): {out['ppo_rollout_step_us']['disabled']:.3f} / "
         f"{out['ppo_rollout_step_us']['enabled']:.3f} us"
     )
     return out

@@ -399,33 +399,36 @@ class ChargaxEnv(Environment):
             if isinstance(rng, ArrivalDraws):
                 draws = rng
             else:
-                draws = sampling.draw_arrivals(params, charged.state, rng, arrival_rate_extra)
+                with annotate("env/sample"):
+                    draws = sampling.draw_arrivals(params, charged.state, rng, arrival_rate_extra)
             moved = transition.depart_arrive(params, charged.state, draws)
         with annotate("env/reward"):
             settled = transition.settle(params, state, alloc, charged, moved, dt)
-        new_state = transition.advance_time(params, moved.state, settled.profit)
-        done = new_state.t >= cfg.episode_steps
-        pen = settled.penalties
-        info = {
-            "profit": settled.profit,
-            "reward": settled.reward,
-            "e_net": settled.energies.e_net,
-            "e_grid_net": settled.energies.e_grid_net,
-            "e_pv": settled.energies.e_pv,
-            "constraint_excess": pen.constraint,
-            "missing_kwh": pen.satisfaction_time,
-            "overtime_steps": moved.overtime_steps,
-            "rejected": pen.rejected,
-            "arrived": moved.n_arrived.float(),
-            "price_buy": settled.p_buy,
-            "energy_delivered": charged.e_car.clamp_min(0.0).sum(-1),
-            "energy_discharged": (-charged.e_car).clamp_min(0.0).sum(-1),
-            "v2g_debt": new_state.v2g_debt.sum(-1),
-            "grid/power_drawn": alloc.power_kw,
-            "grid/cap": alloc.cap_kw,
-            "grid/violation": alloc.violation_kw,
-            "grid/setpoint_dev": settled.setpoint_dev_kw,
-        }
+        with annotate("env/advance"):
+            new_state = transition.advance_time(params, moved.state, settled.profit)
+            done = new_state.t >= cfg.episode_steps
+        with annotate("env/info"):
+            pen = settled.penalties
+            info = {
+                "profit": settled.profit,
+                "reward": settled.reward,
+                "e_net": settled.energies.e_net,
+                "e_grid_net": settled.energies.e_grid_net,
+                "e_pv": settled.energies.e_pv,
+                "constraint_excess": pen.constraint,
+                "missing_kwh": pen.satisfaction_time,
+                "overtime_steps": moved.overtime_steps,
+                "rejected": pen.rejected,
+                "arrived": moved.n_arrived.float(),
+                "price_buy": settled.p_buy,
+                "energy_delivered": charged.e_car.clamp_min(0.0).sum(-1),
+                "energy_discharged": (-charged.e_car).clamp_min(0.0).sum(-1),
+                "v2g_debt": new_state.v2g_debt.sum(-1),
+                "grid/power_drawn": alloc.power_kw,
+                "grid/cap": alloc.cap_kw,
+                "grid/violation": alloc.violation_kw,
+                "grid/setpoint_dev": settled.setpoint_dev_kw,
+            }
         with annotate("env/observe"):
             obs = self.observe(new_state, params)
         return TimeStep(obs, new_state, settled.reward, done, info)

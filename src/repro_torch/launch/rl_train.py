@@ -129,7 +129,7 @@ def profile_probe(
         hidden=cfg.hidden,
     )
     gen = torch.Generator(device=env.device).manual_seed(args.seed)
-    with obs.trace_session(args.profile, keep_xplane=False):
+    with obs.trace_session(args.profile):
         with obs.annotate("profile/trace_and_compile"):
             probe = make_train(probe_cfg, env, scenario_params=stacked, device=env.device)
             runner = probe.init(gen)

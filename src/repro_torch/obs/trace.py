@@ -6,14 +6,16 @@ host thread and, under a profiler with the CUDA activity, a span over the
 device work launched inside it.  Annotations are **disabled by default**,
 and then :func:`annotate` returns one shared null context: no generator, no
 call into the profiler.  (``record_function`` costs several microseconds per
-``with`` even when no profiler runs; a rollout step crosses 8-10 phases.)
+``with`` even when no profiler runs; an evaluation step crosses 9 phases, a
+PPO rollout step 11.)
 
 Enable them with :func:`enable_trace_annotations` or ``REPRO_TRACE=1``, or
 implicitly with :func:`trace_session`, which runs ``torch.profiler`` and
 writes a perfetto-viewable ``*.trace.json.gz`` (open at
 https://ui.perfetto.dev).  ``rl_train --profile DIR`` is the CLI surface.
 
-Phase names (the JAX package's):
+Phase names (the JAX package's, but for those marked *port*, which have no
+JAX counterpart):
 
 =========================  ==================================================
 ``env/decode``              action decoding (direct / delta modes)
@@ -22,8 +24,15 @@ Phase names (the JAX package's):
 ``env/allocate``            Eq. 5 node-budget allocation (staged route)
 ``env/charge_cars``         battery/car energy integration (staged route)
 ``env/depart_arrive``       arrival draws, departures, arrivals, rejections
+``env/sample``              *port*: the sampler's arrival draws, inside
+                            ``env/depart_arrive`` (none for injected draws)
 ``env/reward``              Eq. 2 revenue + penalty terms
+``env/advance``             *port*: the clock, the midnight price-row reload
+                            and ``done``
+``env/info``                *port*: the step's ``info`` dict
 ``env/observe``             observation build
+``policy/act``              *port*: the policy's forward and its action
+                            (evaluation and the PPO rollout)
 ``wrap/<Wrapper>``          each wrapper layer's step (AutoReset, Log, Fleet)
 ``ppo/rollout``             the rollout loop
 ``ppo/gae``                 advantage estimation
@@ -76,7 +85,6 @@ def annotate(name: str) -> contextlib.AbstractContextManager:
 def trace_session(
     log_dir: str,
     enable_annotations: bool = True,
-    keep_xplane: bool = True,
     python_tracer: bool = False,
 ) -> Iterator[str]:
     """Profile a region: annotations on, ``torch.profiler`` recording the
@@ -89,12 +97,9 @@ def trace_session(
     env steps): the profiler records every op and kernel.  ``rl_train
     --profile`` therefore traces a one-update probe, not the real run.
 
-    ``keep_xplane`` is accepted for the JAX package's signature: torch
-    writes no ``*.xplane.pb`` sidecar, so there is nothing to delete.
     ``python_tracer=True`` records Python stacks with every op
     (``with_stack``), much more data; only for hunting host overhead.
     """
-    del keep_xplane
     os.makedirs(log_dir, exist_ok=True)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():

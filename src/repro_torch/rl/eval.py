@@ -60,7 +60,8 @@ def run_episodes(
         ep_reward = torch.zeros(num_episodes, device=device)
         with annotate("eval/rollout"):
             for _ in range(env.config.episode_steps):
-                action = policy(policy_params, generator, obs)
+                with annotate("policy/act"):
+                    action = policy(policy_params, generator, obs)
                 ts = env.step(generator, state, action, env_params)
                 obs, state = ts.obs, ts.state
                 ep_reward += ts.reward

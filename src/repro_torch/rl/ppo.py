@@ -302,14 +302,15 @@ class PPOTrain:
         # inference_mode, whose tensors autograd refuses to save
         with annotate("ppo/rollout"), torch.no_grad():
             for t in range(t_steps):
-                out = net(obs)
-                if isinstance(rng, _Replay):
-                    draws = rng.step()
-                    action = networks.sample_action(out.logits, gumbel=draws.gumbel)
-                    env_rng: Any = AutoResetDraws(draws.arrivals, draws.reset)
-                else:
-                    action = networks.sample_action(out.logits, rng)
-                    env_rng = rng
+                with annotate("policy/act"):
+                    out = net(obs)
+                    if isinstance(rng, _Replay):
+                        draws = rng.step()
+                        action = networks.sample_action(out.logits, gumbel=draws.gumbel)
+                        env_rng: Any = AutoResetDraws(draws.arrivals, draws.reset)
+                    else:
+                        action = networks.sample_action(out.logits, rng)
+                        env_rng = rng
                 ts = self.wenv.step(env_rng, env_state, action, self.lowered_env_params)
                 traj.obs[t] = obs
                 traj.action[t] = action
