@@ -7,12 +7,12 @@ kernels to its plain version.
 Phases, in order (any failure raises and the script exits non-zero):
 
 1. device: needs a CUDA card; prints its name and power limit; TF32 off;
-2. build: compiles the four CUDA kernels (chargax_step, flash_attention,
-   mamba2_ssd, rwkv6_wkv) from the checkout (nvcc, sm_90a, one nvcc each, all started
+2. build: compiles the five CUDA kernels (chargax_step, arrivals,
+   flash_attention, mamba2_ssd, rwkv6_wkv) from the checkout (nvcc, sm_90a, one nvcc each, all started
    together) into build/, and prints each build's seconds and ptxas' report
    (each entry function, its registers and its spill bytes); a
-   chargax_step, SSD or WKV instance or an fp32 flash instance that spills
-   fails;
+   chargax_step, arrivals, SSD or WKV instance or an fp32 flash instance
+   that spills fails;
 3. kernel vs plain: the kernel against ``fused_step_ref`` on random slabs,
    B in {1, 300, 16384}, layouts paper_16 / deep_4x4 / kiosk_ac_4 and
    paper_16 padded as a fleet pads it (``pad_evse=40, pad_nodes=36``: 41
@@ -22,7 +22,10 @@ Phases, in order (any failure raises and the script exits non-zero):
    on the CPU (same actions, same injected arrival draws), then ``evaluate``
    of 16384 envs (paper_16, fused step) through a full 288-step episode
    under a greedy PPO policy from seed 0, after one warm-up episode, with
-   the kernel's launch count reset just before and read just after; then one
+   the kernels' launch counts reset just before and read just after (one
+   ``chargax_step`` and one ``arrivals`` a step, the draws from a CUDA
+   generator; the same count holds the training, sweep, fleet, telemetry
+   and sharded phases below); then one
    episode of the paper's max-charge baseline;
 5. serve: a (131072, obs_dim) observation batch through ``serve``, 10 calls;
 6. kernel time: the kernel and its plain version at B=16384 (paper_16),
@@ -174,7 +177,9 @@ Phases, in order (any failure raises and the script exits non-zero):
    trace's correlation ids) inside ``env/fused_transition``; a per-phase
    table of the probe's 8 rollout steps (calls, host ms, device µs and
    kernels a call, each kernel in its innermost phase) and the share of the
-   rollout's device time outside every ``env/*`` and ``wrap/*`` phase; then
+   rollout's device time outside every ``env/*`` and ``wrap/*`` phase
+   (``env/sample``: the arrivals kernel alone, exactly 1 kernel a step,
+   else it fails); then
    ``assert_one_compiled_step`` over the 25 catalog scenarios lowered on one
    paper_16 env (25 launches), and its ``RecompileError`` for a
    ``single_dc_8`` lowering, naming the fields whose shapes differ;
@@ -343,18 +348,32 @@ Phases, in order (any failure raises and the script exits non-zero):
    chain), with the path's own cap, unlimited and binding, and the
    roofline module's kernel chain against its plain chain on the final
    state and power sum; ``random_speedup`` and ``ppo16_speedup`` printed beside the
-   paper's 27x-1144x and 134x-2820x with their steps and seconds.
+   paper's 27x-1144x and 134x-2820x with their steps and seconds;
+45. the arrivals kernel (``kernels/arrivals``, one step's arrival draws in
+   one launch) and its plain version, PyTorch's CUDA samplers, at 262144
+   paper_16 envs and at 87381 fleets of the benchmark's three stations
+   (262143 envs), each env at its own day and step of the day: the
+   Poisson count's mean (within 4 standard errors) and variance (5 %),
+   each car model's share against the envs' rows (4e-3), the Beta arrival
+   SoC's mean (2e-3) and variance (3 %), the time-sensitive share (3e-3)
+   and both normals' mean and standard deviation (0.01) for both routes,
+   one launch a draw; both timed by CUDA events beside the kernel's bound
+   (``arrivals.ops.work``); the kernels inside ``env/sample`` a step over 4
+   env steps profiled after a warm-up step (each arrivals kernel of the
+   trace in ``env/sample`` and exactly 1 a step, else it fails); ptxas'
+   spills (any fails).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and before that a ``{"kernels": [...]}``
-line with all four kernels (``chargax_step``'s launches summed over the
+line with all five kernels (``chargax_step``'s launches summed over the
 episode of phase 4, the training of phases 20 and 23, the sweep of phase 24,
 the fleet phases 25-27, the telemetry phase 28, the sharded phase 40, the
 bridge of phase 41, the paper's results of phase 43 and the harness of
 phase 44, by path, with the fleet
 route's pack times; each LM kernel's launches summed over its prefill and
 its training steps of phases 33-34 and 38-39, by path; flash also with
-phase 36's shapes).  Needs the repository's
+phase 36's shapes; the arrivals kernel's launches on the main paths of
+phases 4, 20, 23-28 and 40, by path, with phase 45's times).  Needs the repository's
 ``src/`` beside this file.  Every path runs at its full depth.
 """
 from __future__ import annotations
@@ -406,7 +425,10 @@ from repro_torch.distributed.train_step import (  # noqa: E402
     make_train_step,
 )
 from repro_torch.envs import AutoReset  # noqa: E402
+from repro_torch.envs.wrappers import FleetAdapter  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.arrivals import ops as arr_ops  # noqa: E402
+from repro_torch.kernels.arrivals import ref as arr_ref  # noqa: E402
 from repro_torch.kernels.chargax_step import ops  # noqa: E402
 from repro_torch.kernels.chargax_step.ref import BIG, PolePacks, PoleSlabs, fused_step_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -436,6 +458,7 @@ from repro_torch.rl.networks import ActorCritic  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.obs import MetricsAccumulator  # noqa: E402
 from repro_torch.rl.ppo import DEFAULT_KPI_METRICS, ReplayDraws, StepDraws, Transition  # noqa: E402
+from repro_torch.core.state import per_port  # noqa: E402
 from repro_torch.utils import replace  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, float32 (non-tensor-core)
@@ -540,8 +563,8 @@ QWEN4, CHATGLM, CHAMELEON = "qwen3-4b", "chatglm3-6b", "chameleon-34b"
 # phases 11 and 16: the flash, SSD and WKV launches of a zamba2-1.2b and an
 # rwkv6-3b prefill
 SCAN_SERVE = {
-    ZAMBA: {"chargax_step": 0, "flash_attention": 7, "mamba2_ssd": 38, "rwkv6_wkv": 0},
-    RWKV: {"chargax_step": 0, "flash_attention": 0, "mamba2_ssd": 0, "rwkv6_wkv": 32},
+    ZAMBA: {"chargax_step": 0, "flash_attention": 7, "mamba2_ssd": 38, "rwkv6_wkv": 0, "arrivals": 0},
+    RWKV: {"chargax_step": 0, "flash_attention": 0, "mamba2_ssd": 0, "rwkv6_wkv": 32, "arrivals": 0},
 }
 # phase 36: (name, (b, hq, hkv, lq, lk, d), dtype, options): gemma2-9b's local
 # and global layers at its prefill of 2 x 8192, qwen3-moe's at 4 x 4096,
@@ -884,10 +907,11 @@ def ptxas_spills(log: str) -> dict[str, str]:
 
 def build_all() -> tuple[float, dict[str, Path]]:
     """Phase 2: one nvcc per kernel source, all started together.  Returns the
-    seconds it took and each library's path; fails if a chargax_step, SSD or
-    WKV instance or an fp32 flash instance spills."""
+    seconds it took and each library's path; fails if a chargax_step,
+    arrivals, SSD or WKV instance or an fp32 flash instance spills."""
     builders = {
         "chargax_step": ops.build_kernel,
+        "arrivals": arr_ops.build_kernel,
         "flash_attention": fa_ops.build_kernel,
         "mamba2_ssd": ssd_ops.build_kernel,
         "rwkv6_wkv": wkv_ops.build_kernel,
@@ -911,7 +935,7 @@ def build_all() -> tuple[float, dict[str, Path]]:
             ):
                 print(f"  nvcc: {line.strip()}")
     print(f"build: all kernels in {total_s:.2f} s")
-    spills = {name: ptxas_spills(results[name][1]) for name in ("chargax_step", "mamba2_ssd", "rwkv6_wkv")}
+    spills = {name: ptxas_spills(results[name][1]) for name in ("chargax_step", "arrivals", "mamba2_ssd", "rwkv6_wkv")}
     spills["flash_attention fp32"] = {f: line for f, line in ptxas_spills(results["flash_attention"][1]).items()
                                       if "flash_attention_fp32_kernel" in f}
     check(len(spills["flash_attention fp32"]) == len(fa_ops.HEAD_DIMS),
@@ -1088,6 +1112,7 @@ def reset_launch_counts() -> None:
     fa_ops.flash_attention.launches = 0
     ssd_ops.ssd.launches = 0
     wkv_ops.wkv.launches = 0
+    arr_ops.arrivals.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
@@ -1096,7 +1121,20 @@ def launch_counts() -> dict[str, int]:
         "flash_attention": fa_ops.flash_attention.launches,
         "mamba2_ssd": ssd_ops.ssd.launches,
         "rwkv6_wkv": wkv_ops.wkv.launches,
+        "arrivals": arr_ops.arrivals.launches,
     }
+
+
+def env_counts(steps: int) -> dict[str, int]:
+    """The launches of ``steps`` fused env steps that draw their arrivals from
+    a CUDA generator: one ``chargax_step`` and one ``arrivals`` a step."""
+    return {**dict.fromkeys(launch_counts(), 0), "chargax_step": steps, "arrivals": steps}
+
+
+def but_arrivals(counts: dict[str, int]) -> dict[str, int]:
+    """``counts`` without the arrivals kernel, for the modules of phases 43
+    and 44, whose arrival draws are not counted ahead."""
+    return {k: v for k, v in counts.items() if k != "arrivals"}
 
 
 def stub_frames(cfg, b: int, seed: int) -> torch.Tensor | None:
@@ -1702,6 +1740,7 @@ def drive_updates(train, gen: torch.Generator, expected: dict[str, int]) -> dict
         "wall_s": wall,
         "env_steps_per_s": cfg.total_timesteps / wall,
         "chargax_step_launches": counts["chargax_step"],
+        "arrivals_launches": counts["arrivals"],
         "peak_memory_gib": peak_gib,
         "rollout_ms": rollout_ms,
         "gae_ms": gae_ms,
@@ -1718,7 +1757,7 @@ def ppo_train(env: ChargaxEnv) -> tuple[dict, object, object]:
     cfg = PPOConfig(num_envs=NUM_ENVS, total_timesteps=PPO_UPDATES * NUM_ENVS * steps, **PPO_SHAPE)
     check(cfg.num_updates == PPO_UPDATES, f"{cfg.num_updates} updates")
     train = make_train(cfg, env, device=dev)
-    expected = {"chargax_step": steps * PPO_UPDATES, "flash_attention": 0, "mamba2_ssd": 0, "rwkv6_wkv": 0}
+    expected = env_counts(steps * PPO_UPDATES)
     summary = drive_updates(train, torch.Generator(device=dev).manual_seed(0), expected)
     runner = summary.pop("runner")
     rr = summary["metrics"]["rollout_reward"]
@@ -1922,7 +1961,7 @@ def ppo_across_pack(env: ChargaxEnv, names: list[str]) -> tuple[dict, object]:
     for field in ("price_buy_table", "pv_kw_table", "grid_cap_kw_table", "grid_setpoint_kw_table", "car_probs"):
         shape = tuple(getattr(lowered, field).shape)
         check(shape[0] == n and len(shape) == 3, f"{field} has shape {shape}: not one copy per scenario")
-    expected = {"chargax_step": steps * MIX_UPDATES, "flash_attention": 0, "mamba2_ssd": 0, "rwkv6_wkv": 0}
+    expected = env_counts(steps * MIX_UPDATES)
     summary = drive_updates(train, torch.Generator(device=dev).manual_seed(0), expected)
     runner = summary.pop("runner")
     print(
@@ -1964,7 +2003,7 @@ def catalog_sweep(env: ChargaxEnv, net) -> dict:
     torch.cuda.synchronize()
     counts = launch_counts()
     steps = env.config.episode_steps
-    expected = {"chargax_step": steps, "flash_attention": 0, "mamba2_ssd": 0, "rwkv6_wkv": 0}
+    expected = env_counts(steps)
     check(counts == expected, f"catalog sweep launches {counts}, expected {expected}")
     profit = state.profit_cum.tolist()
     check(all(math.isfinite(v) for v in profit + ep_reward.tolist()), "catalog sweep: non-finite result")
@@ -1973,7 +2012,8 @@ def catalog_sweep(env: ChargaxEnv, net) -> dict:
         f"catalog sweep: {len(names)} scenarios, one episode each, {episode_ms:.1f} ms; profit "
         + " ".join(f"{n}={v:.2f}" for n, v in zip(names, profit))
     )
-    return {"episode_ms": episode_ms, "profit": dict(zip(names, profit)), "launches": counts["chargax_step"]}
+    return {"episode_ms": episode_ms, "profit": dict(zip(names, profit)), "launches": counts["chargax_step"],
+            "arrivals_launches": counts["arrivals"]}
 
 
 def fleet_card_vs_cpu(dev: torch.device) -> dict:
@@ -2016,8 +2056,8 @@ def fleet_card_vs_cpu(dev: torch.device) -> dict:
                     | {k: getattr(state_d, k).cpu() for k in ("occupied", "t_remain", "t", "day")})
     torch.cuda.synchronize()
     counts = launch_counts()
-    check(counts == {"chargax_step": steps, "flash_attention": 0, "mamba2_ssd": 0, "rwkv6_wkv": 0},
-          f"fleet episode launches {counts}, expected {steps} chargax_step (one a step)")
+    check(counts == env_counts(steps),
+          f"fleet episode launches {counts}, expected {steps} chargax_step and arrivals (one each a step)")
 
     _, state_c = fleets[1].reset(sampling.ResetDraws(day=reset.day.cpu()), params_c)
     same = torch.ones((steps, b), dtype=torch.bool)
@@ -2063,7 +2103,7 @@ def fleet_card_vs_cpu(dev: torch.device) -> dict:
         f"per-station caps binding in {bound_envs} env-steps, max abs err {max_err:.3g}"
     )
     return {"stations_off": len(first_off), "obs_max_abs_err": worst, "kernel_max_abs_err": max_err,
-            "launches": counts["chargax_step"]}
+            "launches": counts["chargax_step"], "arrivals_launches": counts["arrivals"]}
 
 
 def fleet_episode(fleet: FleetEnv, params, gen: torch.Generator) -> object:
@@ -2177,8 +2217,8 @@ def fleet_full_size(dev: torch.device) -> dict:
     end.record()
     torch.cuda.synchronize()
     counts = launch_counts()
-    check(counts == {"chargax_step": steps, "flash_attention": 0, "mamba2_ssd": 0, "rwkv6_wkv": 0},
-          f"fleet episode launches {counts}, expected exactly {steps} chargax_step")
+    check(counts == env_counts(steps),
+          f"fleet episode launches {counts}, expected exactly {steps} chargax_step and arrivals")
     check(bool(torch.isfinite(state.profit_cum).all()) and bool((state.t == steps).all()), "fleet episode state")
     episode_ms = start.elapsed_time(end)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -2196,7 +2236,8 @@ def fleet_full_size(dev: torch.device) -> dict:
     )
     times = fleet_pack_times(dev, fleet)
     return {"stations": b, "episode_ms": episode_ms, "station_steps_per_s": rate, "peak_memory_gib": peak_gib,
-            "launches": counts["chargax_step"], "profile": prof, "kernels_per_step": per_step,
+            "launches": counts["chargax_step"], "arrivals_launches": counts["arrivals"],
+            "profile": prof, "kernels_per_step": per_step,
             "kernel": times}
 
 
@@ -2255,6 +2296,10 @@ def coupled_fleets(dev: torch.device) -> dict:
     sweep_ms = start.elapsed_time(end)
     counts = launch_counts()
     check(counts["chargax_step"] == 0, f"coupled fleets launched chargax_step {counts['chargax_step']} times")
+    # the grid's 16 steps and the sweep's episode each draw once a step
+    coupled_draws = 16 + fleet.config.episode_steps
+    check(counts["arrivals"] == coupled_draws,
+          f"coupled fleets launched arrivals {counts['arrivals']} times, expected {coupled_draws}")
     profit = out["profit"]
     check(bool(torch.isfinite(profit).all()) and profit.shape == (CITY_CANDIDATES,), "sweep profit")
     check(int(out["best"]) == int(torch.argmax(profit)), "sweep best")
@@ -2280,7 +2325,7 @@ def coupled_fleets(dev: torch.device) -> dict:
     )
     return {"grid_max_draw_kw": worst, "grid_binding_fleet_steps": binding, "sweep_ms": sweep_ms,
             "profit_min": float(profit.min()), "profit_max": float(profit.max()), "best": best,
-            "conservation_err": cons, "launches": counts["chargax_step"]}
+            "conservation_err": cons, "launches": counts["chargax_step"], "arrivals_launches": counts["arrivals"]}
 
 
 # phase 28: the phases one PPO rollout step crosses on the fused route, and
@@ -2352,10 +2397,8 @@ def telemetry(env: ChargaxEnv) -> dict:
         ])
         counts = launch_counts()
         expected = PPO_SHAPE["rollout_steps"] + PROBE_STEPS
-        check(
-            counts == {"chargax_step": expected, "flash_attention": 0, "mamba2_ssd": 0, "rwkv6_wkv": 0},
-            f"telemetry launches {counts}, expected {expected} chargax_step",
-        )
+        check(counts == env_counts(expected),
+              f"telemetry launches {counts}, expected {expected} chargax_step and arrivals")
         manifest, record = obs.read_jsonl(path)
         check(manifest["kind"] == "manifest" and manifest["backend"] == "cuda"
               and manifest["device_kind"] == torch.cuda.get_device_name(0)
@@ -2402,6 +2445,9 @@ def telemetry(env: ChargaxEnv) -> dict:
         table[p] = row
         print(f"  {p:22s} {row['calls']:3d} {row['host_ms_per_call']:9.4f} "
               f"{row['device_us_per_call']:10.2f} {row['kernels_per_call']:8.2f}")
+    sample_kernels = table["env/sample"]["kernels_per_call"]
+    print(f"telemetry: env/sample runs {sample_kernels:.2f} kernels a step (the arrivals kernel)")
+    check(sample_kernels == 1, f"env/sample runs {sample_kernels} kernels a step, not the arrivals kernel alone")
     uncovered = per_phase["ppo/rollout"]
     uncovered_share = uncovered["us"] / rollout_us if rollout_us else None
     print(f"  outside policy/act, env/* and wrap/* (the rollout buffers): "
@@ -2436,6 +2482,7 @@ def telemetry(env: ChargaxEnv) -> dict:
         "uncovered_device_share": uncovered_share,
         "mismatch_fields": fields,
         "launches": counts["chargax_step"] + preflight_launches,
+        "arrivals_launches": counts["arrivals"],
     }
 
 
@@ -2489,6 +2536,149 @@ def annotation_cost(env: ChargaxEnv, policy, net, gen) -> dict:
         f"a PPO rollout step (11 phases): {out['ppo_rollout_step_us']['disabled']:.3f} / "
         f"{out['ppo_rollout_step_us']['enabled']:.3f} us"
     )
+    return out
+
+
+# phase 45: the arrivals kernel at the env cells' batch, on paper_16 and on
+# the benchmark's three-station fleet (the eval cell's 262144 envs; 87381
+# fleets of 3), each moment against its distribution's within the bounds
+# of tests/test_torch_env.py's and tests/test_torch_arrivals_kernel.py's
+# sampler tests; env steps profiled for env/sample's kernels
+ARRIVALS_ENVS = 262144
+ARRIVALS_FLEET = (("paper_16", "shopping_pv_tou"), ("deep_4x4", "work_solar_summer"),
+                  ("single_dc_8", "highway_demand_charge"))
+ARRIVALS_BOUNDS = {
+    "poisson_mean_se": 4.0,  # |sum(m - rate)| / sqrt(sum(rate)): standard errors
+    "poisson_var": 0.05,  # |sum((m - rate)^2) / sum(rate) - 1|
+    "model_freq": 4e-3,  # each model's share against the mean of the envs' rows
+    "beta_mean": 2e-3,
+    "beta_var": 0.03,  # relative
+    "bern": 3e-3,
+    "normal_mean": 0.01,
+    "normal_std": 0.01,
+}
+ARRIVALS_PROFILED_STEPS = 4
+
+
+def arrival_moments(params, state, d: sampling.ArrivalDraws) -> dict[str, float]:
+    """How far each of one step's draws lies from its distribution, over a
+    batch whose envs differ in rate, car-model row and Beta parameters (the
+    keys of ``ARRIVALS_BOUNDS``)."""
+    b, n = d.model.shape
+    rate = sampling.arrival_rate(params, state).double()
+    m = d.m.double()
+    probs = sampling.car_probs(params, state.day).double()
+    probs = probs / probs.sum(-1, keepdim=True)
+    freq = torch.bincount(d.model.flatten(), minlength=probs.shape[1]).double() / d.model.numel()
+    a = per_port(params.soc0_a.double()).expand(b, n)
+    bb = per_port(params.soc0_b.double()).expand(b, n)
+    mean, var = a / (a + bb), a * bb / ((a + bb) ** 2 * (a + bb + 1))
+    soc0 = d.soc0.double()
+    p = per_port(params.p_time_sensitive.double()).expand(b, n)
+    zs = [d.z_stay.double(), d.z_tgt.double()]
+    return {
+        "poisson_mean_se": abs(float((m - rate).sum() / rate.sum().sqrt())),
+        "poisson_var": abs(float(((m - rate) ** 2).sum() / rate.sum()) - 1.0),
+        "model_freq": float((freq - probs.mean(0)).abs().max()),
+        "beta_mean": abs(float((soc0 - mean).mean())),
+        "beta_var": abs(float(((soc0 - mean) ** 2).mean() / var.mean()) - 1.0),
+        "bern": abs(float((d.bern.double() - p).mean())),
+        "normal_mean": max(abs(float(z.mean())) for z in zs),
+        "normal_std": max(abs(float(z.std()) - 1.0) for z in zs),
+    }
+
+
+def sample_kernels_per_step(env, params, state, action, gen) -> float:
+    """Kernels launched inside ``env/sample`` per env step, over
+    ``ARRIVALS_PROFILED_STEPS`` steps of ``env`` (a ``ChargaxEnv`` or a
+    ``FleetAdapter``) under the profiler with the spans on, after one step
+    the profiler warms up on (not traced).  Every arrivals kernel of the
+    trace has to lie in ``env/sample``; a failure lists each one's phase and
+    the kernels ``env/sample`` holds."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    steps = ARRIVALS_PROFILED_STEPS
+    prev = obs.enable_trace_annotations(True)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_arrivals.") as tmp:
+            path = os.path.join(tmp, "trace.json.gz")
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=steps)) as prof:
+                for i in range(1 + steps):
+                    state = env.step(gen, state, action, params).state
+                    torch.cuda.synchronize()
+                    if i < steps:  # a step past the last would open a new cycle and drop this one
+                        prof.step()
+            prof.export_chrome_trace(path)
+            spans, kernels = read_trace(path)
+    finally:
+        obs.enable_trace_annotations(prev)
+    check(len(spans.get("env/sample", [])) == steps,
+          f"{len(spans.get('env/sample', []))} env/sample spans in {steps} steps")
+    phase = {id(k): None if k["launch_ts"] is None else innermost_phase(spans, k["launch_ts"], k["tid"])
+             for k in kernels}
+    inside = [k for k in kernels if phase[id(k)] == "env/sample"]
+    drawn = [k for k in kernels if "arrivals_kernel" in k["name"]]
+    check(len(drawn) == steps and all(phase[id(k)] == "env/sample" for k in drawn),
+          f"{len(drawn)} arrivals kernels in {steps} traced steps, in the phases "
+          f"{[(phase[id(k)], k['launch_ts']) for k in drawn]}; env/sample holds {[k['name'] for k in inside]}")
+    return len(inside) / steps
+
+
+def arrivals_vs_plain(dev: torch.device) -> dict:
+    """Phase 45: the arrivals kernel and its plain version (PyTorch's CUDA
+    samplers) at 262144 envs on paper_16 and 262143 on the fleet, each env
+    at its own day and step of the day: every moment of both within
+    ``ARRIVALS_BOUNDS``, one launch a draw, both timed by CUDA events
+    beside the kernel's bound, ``env/sample``'s kernels a step, and ptxas'
+    spills of the kernel (none)."""
+    path, log = arr_ops.build_kernel()
+    spills = ptxas_spills(log)
+    print("arrivals: ptxas " + "; ".join(line.strip() for line in log.splitlines() if "registers" in line))
+    check(bool(spills) and all(re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line)
+                              for line in spills.values()), f"arrivals spills registers: {spills}")
+    env = ChargaxEnv(EnvConfig(fused_step=True), device=dev)
+    stations, names = zip(*ARRIVALS_FLEET)
+    fleet = FleetEnv(list(stations), EnvConfig(fused_step=True), scenarios=list(names),
+                     replicas=ARRIVALS_ENVS // len(stations), device=dev)
+    out = {}
+    for world, e, b in (("paper16", env, ARRIVALS_ENVS), ("fleet_mix3", fleet, fleet.num_envs)):
+        params = e.default_params
+        gen = torch.Generator(device=dev).manual_seed(45)
+        if e is env:
+            _, state = e.reset(gen, params, num_envs=b)
+        else:
+            _, state = e.reset(gen, params)
+        state = replace(state, t=torch.randint(0, e.config.steps_per_day, (b,), generator=gen, device=dev,
+                                               dtype=torch.int32))
+        n = state.occupied.shape[1]
+        row = {"envs": b, "ports": n}
+        for route, fn in (("kernel", sampling.draw_arrivals), ("plain", arr_ref.draw_arrivals_ref)):
+            before = arr_ops.arrivals.launches
+            d = fn(params, state, gen)
+            torch.cuda.synchronize()
+            launched = arr_ops.arrivals.launches - before
+            check(launched == (1 if route == "kernel" else 0), f"arrivals {world} {route}: {launched} launches")
+            moments = arrival_moments(params, state, d)
+            for key, bound in ARRIVALS_BOUNDS.items():
+                check(moments[key] < bound, f"arrivals {world} {route}: {key} {moments[key]:.3g} over {bound}")
+            ms = time_ms(lambda: fn(params, state, gen), [()], warmup=5, n=20)
+            row[route] = {"ms": ms, "moments": moments}
+            print(f"arrivals {world} {route} ({b} x {n}): {ms:.4f} ms; "
+                  + " ".join(f"{k}={v:.3g}" for k, v in moments.items()))
+        w = arr_ops.work(b, n, arr_ops.input_bytes(arr_ops.prepare(params, state.day, n, t=state.t)))
+        row["bound_ms"], row["bound_by"], row["bytes"], _ = _bound(w.bytes, w.ops)
+        action = (fleet.sample_action(gen) if e is fleet
+                  else torch.randint(0, env.num_actions_per_head, (b, env.num_action_heads), generator=gen, device=dev))
+        stepped = e if e is env else FleetAdapter(fleet)
+        row["sample_kernels_per_step"] = sample_kernels_per_step(stepped, params, state, action, gen)
+        check(row["sample_kernels_per_step"] == 1,
+              f"arrivals {world}: env/sample runs {row['sample_kernels_per_step']} kernels a step, not 1")
+        print(f"arrivals {world}: kernel {row['kernel']['ms']:.4f} ms, plain {row['plain']['ms']:.4f} ms, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bytes']} B), share of bound "
+              f"{row['bound_ms'] / row['kernel']['ms']:.3f}; env/sample {row['sample_kernels_per_step']:.2f} "
+              "kernels a step")
+        out[world] = row
     return out
 
 
@@ -3322,7 +3512,7 @@ def sharded_world1(dev: torch.device) -> dict:
         plain, sharded = make_train(cfg, env, device=dev), make_train(cfg, env, device=dev, shard_envs=shard)
         r_p = plain.init(torch.Generator(device=dev).manual_seed(40))
         r_s = sharded.init(torch.Generator(device=dev).manual_seed(40))
-        updates, launches = [], {"plain": 0, "sharded": 0}
+        updates, launches = [], {"plain": 0, "sharded": 0, "arrivals": 0}
         for u in range(SHARD_UPDATES):
             before = {k: v.detach().clone() for k, v in r_p.params.named_parameters()}
             for first in (("plain", "sharded") if u % 2 == 0 else ("sharded", "plain")):
@@ -3334,9 +3524,9 @@ def sharded_world1(dev: torch.device) -> dict:
                     n_calls, ar_ms = timer.ms()
             launches["plain"] += t_p["launches"]["chargax_step"]
             launches["sharded"] += t_s["launches"]["chargax_step"]
+            launches["arrivals"] += t_p["launches"]["arrivals"] + t_s["launches"]["arrivals"]
             for t in (t_p, t_s):
-                check(t["launches"] == {"chargax_step": cfg.rollout_steps, "flash_attention": 0, "mamba2_ssd": 0,
-                                        "rwkv6_wkv": 0}, f"phase 40 update launches {t['launches']}")
+                check(t["launches"] == env_counts(cfg.rollout_steps), f"phase 40 update launches {t['launches']}")
             sp = dict(r_s.params.named_parameters())
             param_err, step_err, outside, far = {}, {}, 0, 0.0
             for name, p in r_p.params.named_parameters():
@@ -3389,16 +3579,17 @@ def sharded_world1(dev: torch.device) -> dict:
                 _, state, reward, _, _ = fleet.step(gen, state, action, params)
                 got.append(reward)
             rewards[flag] = torch.stack(got)
-        fleet_launches = launch_counts()["chargax_step"]
+        counts = launch_counts()
+        fleet_launches = counts["chargax_step"]
         steps = EnvConfig().episode_steps
-        check(fleet_launches == 2 * steps, f"phase 40 fleet launches {fleet_launches}, expected {2 * steps}")
+        check(counts == env_counts(2 * steps), f"phase 40 fleet launches {counts}, expected {2 * steps} of each")
         err = float((rewards[True] - rewards[False]).abs().max())
         check(torch.allclose(rewards[True], rewards[False], **TOL),
               f"phase 40 sharded fleet rewards off the unsharded ones by {err}")
         print(f"sharded fleet world 1: {FLEET_REPLICAS} fleets x {len(FLEET_ARCHS)} stations, one episode, "
               f"rewards within {err:.3g} of shard=False's (limit rtol 1e-4 / atol 2e-4), "
               f"{fleet_launches} chargax_step launches")
-        out["fleet"] = {"reward_max_abs_err": err, "launches": fleet_launches}
+        out["fleet"] = {"reward_max_abs_err": err, "launches": fleet_launches, "arrivals_launches": counts["arrivals"]}
     out["launches"] = out["ppo"]["launches"]["plain"] + out["ppo"]["launches"]["sharded"] + out["fleet"]["launches"]
     return out
 
@@ -3479,7 +3670,7 @@ def paper_bench(dev: torch.device, card: str) -> dict:
     t0 = time.perf_counter()
     kpis = grid.kpi_episodes(dev)
     out["seconds"]["grid"] = time.perf_counter() - t0
-    counts = launch_counts()
+    counts = but_arrivals(launch_counts())
     check(counts == {**dict.fromkeys(counts, 0), "chargax_step": 2 * episode},
           f"phase 43 grid launches {counts}, expected {2 * episode} chargax_step")
     out["launches_by_module"]["grid"] = 2 * episode
@@ -3512,7 +3703,7 @@ def paper_bench(dev: torch.device, card: str) -> dict:
         t0 = time.perf_counter()
         rows = fn()
         seconds = time.perf_counter() - t0
-        counts = launch_counts()
+        counts = but_arrivals(launch_counts())
         check([r[0] for r in rows] == BENCH_ROWS[name], f"phase 43 {name} rows {[r[0] for r in rows]}")
         check(all(math.isfinite(r[1]) for r in rows), f"phase 43 {name} non-finite rows {rows}")
         check(counts == {**dict.fromkeys(counts, 0), "chargax_step": expect},
@@ -3653,7 +3844,7 @@ def bench_harness(dev: torch.device, card: str) -> dict:
         with capture_slabs(kept):
             rows = fn()
         seconds = time.perf_counter() - t0
-        counts = launch_counts()
+        counts = but_arrivals(launch_counts())
         check([r[0] for r in rows] == HARNESS_ROWS[name], f"phase 44 {name} rows {[r[0] for r in rows]}")
         check(all(math.isfinite(r[1]) for r in rows), f"phase 44 {name} non-finite rows {rows}")
         check(counts == {**dict.fromkeys(counts, 0), "chargax_step": expect[name]},
@@ -3735,11 +3926,8 @@ def main() -> int:
     launches = episode_counts["chargax_step"]
     episode_s = start.elapsed_time(end) / 1000.0
     steps = env.config.episode_steps
-    check(
-        episode_counts
-        == {"chargax_step": steps, "flash_attention": 0, "mamba2_ssd": 0, "rwkv6_wkv": 0},
-        f"episode launches {episode_counts}, expected {steps} chargax_step",
-    )
+    check(episode_counts == env_counts(steps),
+          f"episode launches {episode_counts}, expected {steps} chargax_step and arrivals")
     check_kpis(result, "ppo greedy")
     env_steps_per_s = NUM_ENVS * steps / episode_s
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -4057,6 +4245,12 @@ def main() -> int:
     phase_s[44] = time.perf_counter() - lap
     print(f"the rest of the harness, host s: 44={phase_s[44]:.1f}")
 
+    # --- 45. the arrivals kernel -------------------------------------------------------------------
+    lap = time.perf_counter()
+    arrivals = arrivals_vs_plain(dev)
+    phase_s[45] = time.perf_counter() - lap
+    print(f"the arrivals kernel, host s: 45={phase_s[45]:.1f}")
+
     metrics = {
         "env_steps_per_s": env_steps_per_s,
         "episode_s": episode_s,
@@ -4085,6 +4279,7 @@ def main() -> int:
         "roofline": roof,
         "paper_bench": {k: v for k, v in bench.items() if k != "rows"},
         "bench_harness": harness,
+        "arrivals": arrivals,
         "phases_s": phase_s,
     }
     print(json.dumps({"metrics": metrics}))
@@ -4102,6 +4297,20 @@ def main() -> int:
         "train_whisper": whisper_train["launches"]["flash_attention"],
         "serve_dense": sum(slice_launches[arch]["flash_attention"] for arch in (TINY, QWEN4, CHATGLM, CHAMELEON)),
         "train_qwen3": qwen4_train["launches"]["flash_attention"],
+    }
+    # the arrivals kernel's launches on the main paths, each held to one a
+    # step drawn from a CUDA generator where it was read
+    arrivals_paths = {
+        "evaluate": episode_counts["arrivals"],
+        "make_train": ppo_summary["arrivals_launches"],
+        "make_train_v2g_mix": mix_summary["arrivals_launches"],
+        "evaluate_catalog": sweep["arrivals_launches"],
+        "fleet_card_vs_cpu": fleet_check["arrivals_launches"],
+        "fleet": fleet_summary["arrivals_launches"],
+        "fleet_grid_city_coupled": coupled["arrivals_launches"],
+        "telemetry": telem["arrivals_launches"],
+        "make_train_sharded_world1_and_unsharded": sharded["ppo"]["launches"]["arrivals"],
+        "fleet_sharded_world1_and_unsharded": sharded["fleet"]["arrivals_launches"],
     }
     kernels = [
         {
@@ -4179,6 +4388,20 @@ def main() -> int:
             },
             "max_abs_err": max(wkv_err, grad_errs["rwkv6_wkv"]),
             **wkv_times,
+        },
+        {
+            "name": "arrivals",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/arrivals/csrc/arrivals.cu",
+            "replaces": None,  # the JAX package's jax.random draws inside its jitted step
+            "launches": sum(arrivals_paths.values()),
+            "launches_by_path": arrivals_paths,
+            "ms": arrivals["paper16"]["kernel"]["ms"],
+            "plain_ms": arrivals["paper16"]["plain"]["ms"],
+            "bound_ms": arrivals["paper16"]["bound_ms"],
+            "bound_by": arrivals["paper16"]["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes this function
+            "fleet": arrivals["fleet_mix3"],
         },
     ]
     print(json.dumps({"kernels": kernels}))

@@ -5,7 +5,10 @@ its random draws apart from the physics that consumes them.  A step or reset
 takes either a ``torch.Generator`` (the draws below are made from it) or the
 draws themselves (:class:`ArrivalDraws`, :class:`ResetDraws`).  Tests inject
 the JAX package's own draws for a key and hold the physics to the reference;
-the generator sampler is held to the distributions by its moments.
+the generator sampler is held to the distributions by its moments.  On the
+card the draws are one launch of a hand-written kernel
+(:mod:`repro_torch.kernels.arrivals`); on the CPU they are PyTorch's own
+samplers, the kernel's plain version.
 
 The per-port draws match ``repro/core/transition.py:567-578``: one car model,
 stay noise, arrival SoC, target noise and user-type coin per port, of which
@@ -18,7 +21,9 @@ import math
 
 import torch
 
-from repro_torch.core.state import EnvParams, EnvState, per_port, scenario_rows
+from repro_torch.core.state import EnvParams, EnvState, scenario_rows
+from repro_torch.kernels.arrivals import ops as arrivals_kernel
+from repro_torch.kernels.arrivals import ref as arrivals_ref
 
 Tensor = torch.Tensor
 
@@ -66,6 +71,12 @@ def car_probs(params: EnvParams, day: Tensor) -> Tensor:
     return scenario_rows(params, probs, torch.remainder(day, probs.shape[-2]).long())
 
 
+def uses_kernel(device: torch.device, generator: torch.Generator) -> bool:
+    """Whether draws on ``device`` from ``generator`` launch the arrivals
+    kernel: both on CUDA.  Anything else takes the plain version."""
+    return device.type == "cuda" and generator.device.type == "cuda"
+
+
 def draw_arrivals(
     params: EnvParams,
     state: EnvState,
@@ -73,9 +84,16 @@ def draw_arrivals(
     rate_extra: Tensor | None = None,
 ) -> ArrivalDraws:
     """Draw one step's arrivals from ``generator`` (on the state's device),
-    the Poisson count at :func:`arrival_rate` with ``rate_extra``."""
-    m = torch.poisson(arrival_rate(params, state, rate_extra), generator=generator)
-    return draw_cars(params, state.day, state.occupied.shape[1], m.to(torch.int32), generator)
+    the Poisson count at :func:`arrival_rate` with ``rate_extra``: one
+    launch of the arrivals kernel on CUDA tensors from a CUDA generator
+    (:func:`uses_kernel`), else PyTorch's own samplers
+    (:mod:`repro_torch.kernels.arrivals.ref`)."""
+    if uses_kernel(state.day.device, generator):
+        n = state.occupied.shape[1]
+        return ArrivalDraws(*arrivals_kernel.arrivals(
+            params, state.day, n, generator, t=state.t, rate_extra=rate_extra
+        ))
+    return arrivals_ref.draw_arrivals_ref(params, state, generator, rate_extra)
 
 
 def draw_cars(
@@ -83,19 +101,11 @@ def draw_cars(
 ) -> ArrivalDraws:
     """The arrivals' per-port draws for envs on ``day`` (B,) with ``n``
     ports, beside their given counts ``m``: none of these depends on the
-    arrival rate."""
-    b, dev = day.shape[0], day.device
-    model = torch.multinomial(car_probs(params, day), n, replacement=True, generator=generator)
-    z_stay = torch.randn((b, n), generator=generator, device=dev)
-    # Beta(a, b) as X / (X + Y) with X ~ Gamma(a), Y ~ Gamma(b)
-    def ports(field: Tensor) -> Tensor:
-        return per_port(field).expand(b, n).contiguous()
-
-    x = torch._standard_gamma(ports(params.soc0_a), generator=generator)
-    y = torch._standard_gamma(ports(params.soc0_b), generator=generator)
-    z_tgt = torch.randn((b, n), generator=generator, device=dev)
-    bern = torch.bernoulli(ports(params.p_time_sensitive), generator=generator)
-    return ArrivalDraws(m=m, model=model, z_stay=z_stay, soc0=x / (x + y), z_tgt=z_tgt, bern=bern > 0.5)
+    arrival rate.  The same routes as :func:`draw_arrivals`; the kernel
+    copies ``m`` (int32)."""
+    if uses_kernel(day.device, generator):
+        return ArrivalDraws(*arrivals_kernel.arrivals(params, day, n, generator, counts=m))
+    return arrivals_ref.draw_cars_ref(params, day, n, m, generator)
 
 
 def poisson_quantile(u: Tensor, rate: Tensor) -> Tensor:

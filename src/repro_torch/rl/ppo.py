@@ -27,9 +27,11 @@ envs ``[r·B/W, (r+1)·B/W)`` and the update is the unsharded run's global-batch
 update: every rank draws the same permutation of the ``T·B`` flat batch and
 takes the entries of each minibatch that fall in its block; the loss's
 means are local sums over the global minibatch size, GAE's normalisation
-takes its mean and centred sum of squares from all-reduced fp64 sums, the
-gradients are summed over the ranks before the clip, and the metrics' env
-means are all-reduced.  A :class:`ReplayDraws` is cut into each rank's env
+takes its mean and centred sum of squares from all-reduced fp64 sums (the
+unsharded learn takes the same fp64 statistics and the same means, so the
+update of one rank is the unsharded one bit for bit), the gradients are
+summed over the ranks before the clip, and the metrics' env means are
+all-reduced.  A :class:`ReplayDraws` is cut into each rank's env
 columns (its permutations stay whole).  From a generator, each rank draws
 its envs' randomness (actions, arrivals, resets) from a generator seeded by
 (seed, rank), and the weights and permutations from the run's generator; at
@@ -193,6 +195,16 @@ def _rank_generator(rng: torch.Generator, rank: int) -> torch.Generator:
     return torch.Generator(device=rng.device).manual_seed(seed)
 
 
+def _gae_stats(gae: Tensor) -> tuple[Tensor, Tensor]:
+    """A minibatch's GAE mean and population std as the sharded learn takes
+    them from its all-reduced sums: in fp64, cast to fp32 at the end, so a
+    sharded run of one rank is the unsharded run bit for bit."""
+    g = gae.double()
+    mean = g.sum() / g.numel()
+    std = ((g - mean).square().sum() / g.numel()).sqrt()
+    return mean.float(), std.float()
+
+
 def compute_gae(
     reward: Tensor,
     value: Tensor,
@@ -342,22 +354,25 @@ class PPOTrain:
         gae: Tensor,
         targets: Tensor,
         *,
-        gae_stats: tuple[Tensor, Tensor] | None = None,
-        size: int | None = None,
+        gae_stats: tuple[Tensor, Tensor],
+        size: int,
     ) -> tuple[Tensor, dict[str, Tensor]]:
-        """The clipped PPO objective on one minibatch: ``(total, aux)``.
+        """The clipped PPO objective on one minibatch, or on a rank's share
+        of a sharded one: ``(total, aux)``.
 
-        A rank's share of a sharded minibatch passes the minibatch's GAE mean
-        and std (``gae_stats``) and its global ``size``: each mean is then the
-        share's sum over ``size``, and the ranks' totals add up to the
-        minibatch's objective."""
+        ``gae_stats`` is the minibatch's GAE mean and population std (as
+        ``jnp.std``; :func:`_gae_stats`) and ``size`` its global size: each
+        mean is the share's sum over ``size``, so the ranks' totals add up to
+        the minibatch's objective."""
         cfg = self.config
-        mean = Tensor.mean if size is None else (lambda x: x.sum() / size)
+
+        def mean(x: Tensor) -> Tensor:
+            return x.sum() / size
+
         out = net(obs)
         log_prob = networks.log_prob(out.logits, action)
         ratio = torch.exp(log_prob - old_log_prob)
-        # jnp.std is the population std
-        gae_mean, gae_std = (gae.mean(), gae.std(correction=0)) if gae_stats is None else gae_stats
+        gae_mean, gae_std = gae_stats
         gae_n = (gae - gae_mean) / (gae_std + 1e-8)
         pg1 = ratio * gae_n
         pg2 = ratio.clamp(1 - cfg.clip_eps, 1 + cfg.clip_eps) * gae_n
@@ -398,7 +413,8 @@ class PPOTrain:
                 for i in range(cfg.num_minibatches):
                     idx = perm[i * mb : (i + 1) * mb]
                     total, aux = self.loss(
-                        net, obs[idx], action[idx], value[idx], log_prob[idx], gae[idx], targets[idx]
+                        net, obs[idx], action[idx], value[idx], log_prob[idx], gae[idx], targets[idx],
+                        gae_stats=_gae_stats(gae[idx]), size=mb,
                     )
                     grads = torch.autograd.grad(total, list(params.values()))
                     opt_state, gnorm = adamw_step_(

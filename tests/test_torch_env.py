@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import sampling
+from repro_torch.core import ChargaxEnv, sampling
 from repro_torch.core.sampling import ResetDraws
 from repro_torch.utils import replace
 from test_torch_transition import arrival_draws, as_torch, env_pair, replay_arrive_draws
@@ -101,42 +101,58 @@ def test_rollout_matches_jax(architecture, fused):
 N_SAMPLE = 20000
 
 
-def _sample(t_step: int = 150, day: int = 10, params=None):
+DEVICES = ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)]
+
+
+def _port_env(device: str) -> ChargaxEnv:
+    """The port's paper_16 env on ``device`` (a ``cuda`` case skips without
+    a card)."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the arrivals kernel has no CPU mode")
     _, tenv = env_pair()
+    return tenv if device == "cpu" else ChargaxEnv(tenv.config, device=device)
+
+
+def _sample(t_step: int = 150, day: int = 10, params=None, device: str = "cpu"):
+    """``N_SAMPLE`` arrival draws of paper_16 at one step and day: on the CPU
+    by PyTorch's samplers, on the card by the arrivals kernel (a CUDA
+    generator)."""
+    tenv = _port_env(device)
     params = params if params is not None else tenv.default_params
     _, state = tenv.reset(
-        ResetDraws(day=torch.full((N_SAMPLE,), day, dtype=torch.int32)), params
+        ResetDraws(day=torch.full((N_SAMPLE,), day, dtype=torch.int32, device=tenv.device)), params
     )
-    state = replace(state, t=torch.full((N_SAMPLE,), t_step, dtype=torch.int32))
-    gen = torch.Generator().manual_seed(0)
+    state = replace(state, t=torch.full((N_SAMPLE,), t_step, dtype=torch.int32, device=tenv.device))
+    gen = torch.Generator(device=tenv.device).manual_seed(0)
     return params, state, sampling.draw_arrivals(params, state, gen)
 
 
-def test_sampler_poisson_and_categorical_moments():
-    params, state, d = _sample()
+@pytest.mark.parametrize("device", DEVICES)
+def test_sampler_poisson_and_categorical_moments(device):
+    params, state, d = _sample(device=device)
     rate = float(sampling.arrival_rate(params, state)[0])
-    m = d.m.double()
+    m = d.m.double().cpu()
     assert d.m.dtype == torch.int32 and d.m.shape == (N_SAMPLE,)
     se = math.sqrt(rate / N_SAMPLE)
     assert abs(m.mean().item() - rate) < 4 * se
     assert abs(m.var().item() - rate) < 0.05 * rate  # Poisson: var == mean
-    freq = torch.bincount(d.model.flatten(), minlength=params.car_probs.shape[0])
+    freq = torch.bincount(d.model.flatten().cpu(), minlength=params.car_probs.shape[0])
     freq = freq.double() / d.model.numel()
-    np.testing.assert_allclose(freq.numpy(), params.car_probs.double().numpy(), atol=4e-3)
+    np.testing.assert_allclose(freq.numpy(), params.car_probs.double().cpu().numpy(), atol=4e-3)
 
 
-def test_sampler_per_day_car_probs():
-    _, tenv = env_pair()
-    base = tenv.default_params
+@pytest.mark.parametrize("device", DEVICES)
+def test_sampler_per_day_car_probs(device):
+    base = _port_env(device).default_params
     n_models = base.car_probs.shape[0]
     table = torch.full((365, n_models), 0.0)
     table[:, 0] = 1.0
     table[10] = torch.full((n_models,), 1.0 / n_models)  # day 10: uniform
-    params = replace(base, car_probs=table)
-    _, _, d = _sample(day=10, params=params)
-    freq = torch.bincount(d.model.flatten(), minlength=n_models).double() / d.model.numel()
+    params = replace(base, car_probs=table.to(base.car_probs.device))
+    _, _, d = _sample(day=10, params=params, device=device)
+    freq = torch.bincount(d.model.flatten().cpu(), minlength=n_models).double() / d.model.numel()
     np.testing.assert_allclose(freq.numpy(), np.full(n_models, 1.0 / n_models), atol=4e-3)
-    _, _, d = _sample(day=11, params=params)
+    _, _, d = _sample(day=11, params=params, device=device)
     assert bool((d.model == 0).all())
 
 
