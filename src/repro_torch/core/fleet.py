@@ -50,6 +50,7 @@ from repro_torch.core.env import ChargaxEnv, EnvConfig
 from repro_torch.core.sampling import ArrivalDraws, ResetDraws
 from repro_torch.core.state import EnvParams, EnvState, RewardWeights
 from repro_torch.envs.base import TimeStep
+from repro_torch.obs.trace import annotate
 
 Tensor = torch.Tensor
 
@@ -413,22 +414,24 @@ class FleetEnv:
         arrivals (from the pre-step state)."""
         template = self.template
         applied = template.request_stage(state, action, params)
-        alloc = transition.allocate(params, state, applied)  # per-station caps
+        with annotate("env/allocate"):
+            alloc = transition.allocate(params, state, applied)  # per-station caps
         if self.couple_grid:
-            # the fleet's feeder: station 0's table at station 0's clock
-            fleet_cap = self._fleets(transition.grid_cap_kw(params, state))[:, 0]
-            p = self._fleets(alloc.power_kw)  # (E, S) post-local-allocation draws
-            total = p.sum(1)
-            scale = torch.clamp(fleet_cap / total.clamp_min(1e-9), max=1.0)
-            fleet_excess = (total - fleet_cap).clamp_min(0.0)
-            share = p / total.clamp_min(1e-9)[:, None]  # pro-rata attribution
-            alloc = transition.AllocationResult(
-                applied=transition.curtail(alloc.applied, self._broadcast(scale)),
-                power_req_kw=alloc.power_req_kw,
-                power_kw=(p * scale[:, None]).reshape(-1),
-                cap_kw=torch.minimum(alloc.cap_kw, self._broadcast(fleet_cap)),
-                violation_kw=alloc.violation_kw + (fleet_excess[:, None] * share).reshape(-1),
-            )
+            with annotate("fleet/feeder"):
+                # the fleet's feeder: station 0's table at station 0's clock
+                fleet_cap = self._fleets(transition.grid_cap_kw(params, state))[:, 0]
+                p = self._fleets(alloc.power_kw)  # (E, S) post-local-allocation draws
+                total = p.sum(1)
+                scale = torch.clamp(fleet_cap / total.clamp_min(1e-9), max=1.0)
+                fleet_excess = (total - fleet_cap).clamp_min(0.0)
+                share = p / total.clamp_min(1e-9)[:, None]  # pro-rata attribution
+                alloc = transition.AllocationResult(
+                    applied=transition.curtail(alloc.applied, self._broadcast(scale)),
+                    power_req_kw=alloc.power_req_kw,
+                    power_kw=(p * scale[:, None]).reshape(-1),
+                    cap_kw=torch.minimum(alloc.cap_kw, self._broadcast(fleet_cap)),
+                    violation_kw=alloc.violation_kw + (fleet_excess[:, None] * share).reshape(-1),
+                )
         if city is None:
             return template.finish_step(rng, state, alloc, params)
 

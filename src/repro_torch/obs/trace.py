@@ -21,7 +21,8 @@ JAX counterpart):
 ``env/decode``              action decoding (direct / delta modes)
 ``env/fused_transition``    request -> allocate -> deliver in the fused kernel
 ``env/apply_actions``       request: the constrained currents
-``env/allocate``            Eq. 5 node-budget allocation (staged route)
+``env/allocate``            Eq. 5 node-budget allocation (staged route; a
+                            coupled fleet's per-station allocation too)
 ``env/charge_cars``         battery/car energy integration (staged route)
 ``env/depart_arrive``       arrival draws, departures, arrivals, rejections
 ``env/sample``              *port*: the sampler's arrival draws, inside
@@ -33,6 +34,8 @@ JAX counterpart):
 ``env/observe``             observation build
 ``policy/act``              *port*: the policy's forward and its action
                             (evaluation and the PPO rollout)
+``fleet/feeder``            *port*: a grid-coupled fleet's shared feeder,
+                            between the stations' allocation and deliver
 ``wrap/<Wrapper>``          each wrapper layer's step (AutoReset, Log, Fleet)
 ``ppo/rollout``             the rollout loop
 ``ppo/gae``                 advantage estimation

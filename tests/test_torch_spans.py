@@ -121,6 +121,57 @@ def test_fleet_adapters_own_ops_are_the_per_fleet_sums(tmp_path):
     assert own.count("aten::sum") == 2 and set(own) <= FLEET_SUM_OPS, own
     assert [(op, span) for op, span in ops if span != "wrap/FleetAdapter" and not span.startswith("env/")] == []
     assert {"env/sample", "env/advance", "env/info"} <= {span for _, span in ops}
+    # the uncoupled fleet takes the fused route and has no feeder
+    assert not {"fleet/feeder", "env/allocate"} & {span for _, span in ops}
+
+
+def _coupled_fleet():
+    """The repository's grid benchmark's fleet: four stations behind one
+    300 kW feeder, two fleets of them."""
+    fleet = FleetEnv(["paper_16", "deep_4x4", "paper_16", "mixed_8_8"], EnvConfig(**SHORT),
+                     scenarios=["grid_tight_transformer"] * 4, couple_grid=True, replicas=2, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    _, state = fleet.reset(gen)
+    return fleet, gen, state, fleet.sample_action(gen)
+
+
+def test_the_coupled_fleets_allocation_and_feeder_are_in_their_spans(tmp_path):
+    from repro_torch.core import transition
+
+    fleet, gen, state, action = _coupled_fleet()
+    ops = _traced(tmp_path, lambda: FleetAdapter(fleet).step(gen, state, action))
+    # every op of the stations' allocation is in env/allocate: the same ops as the call alone
+    params = fleet.default_params
+    applied = fleet.template.request_stage(state, action, params)
+    alone = _traced(tmp_path, lambda: transition.allocate(params, state, applied))
+    assert sorted(op for op, span in ops if span == "env/allocate") == sorted(op for op, _ in alone)
+    # the feeder's per-fleet sum, scale, curtailment, cap and attribution are in fleet/feeder
+    feeder = [op for op, span in ops if span == "fleet/feeder"]
+    assert {"aten::sum", "aten::clamp", "aten::div", "aten::where", "aten::minimum", "aten::mul"} <= set(feeder)
+    # so FleetAdapter's own ops are the per-fleet sums alone, and nothing lies outside a span
+    own = [op for op, span in ops if span == "wrap/FleetAdapter"]
+    assert own.count("aten::sum") == 2 and set(own) <= FLEET_SUM_OPS, own
+    assert [(op, span) for op, span in ops
+            if span not in ("wrap/FleetAdapter", "fleet/feeder") and not span.startswith("env/")] == []
+    assert {"env/apply_actions", "env/charge_cars", "env/sample"} <= {span for _, span in ops}
+    assert "env/fused_transition" not in {span for _, span in ops}
+
+
+def test_the_coupled_fleets_spans_change_no_number():
+    fleet, _, state, action = _coupled_fleet()
+    steps = []
+    for on in (False, True):
+        prev = obs.enable_trace_annotations(on)
+        try:
+            steps.append(fleet.step(torch.Generator().manual_seed(5), state, action))
+        finally:
+            obs.enable_trace_annotations(prev)
+    (_, off_state, off_reward, _, off_info), (_, on_state, on_reward, _, on_info) = steps
+    assert torch.equal(off_reward, on_reward) and torch.equal(off_state.evse_current, on_state.evse_current)
+    assert torch.equal(off_info["grid/violation"], on_info["grid/violation"])
+    # the feeder bound: the fleets draw at most the cap, 300 kW each
+    drawn = off_info["grid/power_drawn"].reshape(-1, 4).sum(1)
+    assert bool((drawn <= 300.0 * (1 + 1e-6)).all())
 
 
 def test_the_ppo_rollout_acts_inside_policy_act(tmp_path):
